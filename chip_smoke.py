@@ -6,8 +6,9 @@
 Phases, each printing a line when it finishes:
 
 1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compiles the hand-written kernel from ``mrs_optic_flow_tpu_torch/
-   csrc/`` into ``build/torch_kernels/``;
+2. build: compiles the hand-written kernels A, B and C from
+   ``mrs_optic_flow_tpu_torch/csrc/`` into ``build/torch_kernels/``, one
+   ``nvcc`` per source, all started together;
 3. kernel A against its plain twin and the NumPy oracle (``tests/oracle.py``)
    on the shared accuracy pairs (480 px frames, 120 px patches, uint8), plus
    the edge cases: zero frames, identical frames, a NaN pixel, float32
@@ -18,12 +19,31 @@ Phases, each printing a line when it finishes:
 5. the node: ``OpticFlowNode(NodeConfig(), device="cuda")`` on 20 BGR
    752x480 frames of a texture moving at a known velocity; every published
    twist after the first is held to 0.15 m/s of the truth, and every frame
-   is shown to have gone through the kernel.
+   is shown to have gone through the kernel;
+6. kernel B against its twin: log-polar surfaces at N = 480 (P = 1 and 4),
+   FftMethod ``backend="fft"`` surfaces ``[64, 120, 120]``, and ties, NaN
+   inside and outside the search window, an edge peak, an all-negative and
+   a zero surface; both timed at the two shapes;
+7. kernel C against its twin at the default geometry (9 cells, S = 120,
+   R = 21): bit-identical maps on integer-valued inputs, 1e-6 relative on
+   float inputs, G = 1 and repeated runs identical; both timed;
+8. the node with ``scale_rotation: true`` at full width (frame 480,
+   log-polar 480, Lanczos-4) on 20 frames rotated and zoomed about the
+   image centre by known steps: every decode after the first within 1 deg
+   and 0.03 of the truth, kernel and twin decodes within 1e-4, every frame
+   through kernel B;
+9. the node with methods 3 and 5 (480 / 120 / R 21 / step 24) on phase 5's
+   texture: every twist after the first within 0.10 m/s of the truth, every
+   frame through kernel C.
 
-Before the last line it prints one JSON object describing each kernel of
-the path; the last line is ``{"ok": true, "device": {...}}``.  Any failure
-raises, so the script exits non-zero and prints no result.  Without a CUDA
-device, or without the repository beside it, it fails.
+Each node phase sets every kernel's launch count to 0 just before it drives
+the node and reads the counts just after.  Before the last line it prints
+one JSON object describing each kernel: its launches in its node phase
+(kernel C: methods 3 and 5 together), its largest difference from its twin,
+and its time and the twin's at the node's shape.  The last line is
+``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
+non-zero and prints no result.  Without a CUDA device, or without the
+repository beside it, it fails.
 """
 
 from __future__ import annotations
@@ -37,8 +57,15 @@ import time
 import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parent
-KERNEL_SOURCE = "mrs_optic_flow_tpu_torch/csrc/phase_correlate_frames.cu"
-KERNEL_REPLACES = "mrs_optic_flow_tpu/ops/pallas_kernels.py:270"
+#: kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "phase_correlate_frames": ("mrs_optic_flow_tpu_torch/csrc/phase_correlate_frames.cu",
+                               "mrs_optic_flow_tpu/ops/pallas_kernels.py:270"),
+    "peak_refine_raw": ("mrs_optic_flow_tpu_torch/csrc/peak_refine_raw.cu",
+                        "mrs_optic_flow_tpu/ops/pallas_kernels.py:142"),
+    "sad_search": ("mrs_optic_flow_tpu_torch/csrc/sad_search.cu",
+                   "mrs_optic_flow_tpu/ops/block_matching.py:66"),
+}
 
 SHIFT_TOL = 0.01  # px, kernel against twin and oracle (hard budget 0.1, BASELINE.md)
 MAXVAL_RTOL = 1e-4  # float32 sums in another order than the twin's
@@ -49,6 +76,10 @@ HEIGHT = 2.0
 DT = 0.05
 N_FRAMES = 20
 BENCH_BATCH = 4096
+SR_STEP_DEG, SR_STEP_ZOOM = 2.0, 1.02  # per frame, phase 8
+SR_ROT_TOL, SR_SCALE_TOL = 1.0, 0.03  # deg and scale, tests/test_logpolar.py:408-444
+SR_TWIN_TOL = 1e-4  # kernel and twin decodes
+BM_TWIST_TOL = 0.10  # m/s: about 1 px of flow per frame at fx 420, h 2 m, dt 0.05 s
 
 
 def say(msg: str) -> None:
@@ -154,6 +185,160 @@ def measure_throughput(dev) -> tuple:
     return ms_one, ms_twin_one
 
 
+PEAK_SHIFT_TOL = 1e-4  # px, kernel B against its twin
+PEAK_MAXVAL_RTOL = 1e-6
+SAD_RTOL = 1e-6  # kernel C against its twin on non-integer inputs
+
+
+def compare_peak(raw, search_radius: int, label: str) -> float:
+    """Kernel B against its twin on raw surfaces ``[..., N, N]``: the same
+    peak index wherever the maxval is finite, the same NaN pattern, shifts
+    within PEAK_SHIFT_TOL and maxval within PEAK_MAXVAL_RTOL.  Returns the
+    largest shift difference."""
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        peak_refine_raw as kernel,
+        peak_refine_raw_ref as twin,
+    )
+
+    ks, km, ki = (x.cpu().numpy() for x in kernel(raw, search_radius=search_radius, with_index=True))
+    ts, tm, ti = (x.cpu().numpy() for x in twin(raw, search_radius=search_radius, with_index=True))
+    nan = np.isnan(tm)
+    check(np.array_equal(np.isnan(km), nan), f"{label}: NaN maxval pattern differs")
+    check(np.array_equal(np.isnan(ks), np.isnan(ts)), f"{label}: NaN shift pattern differs")
+    check(np.array_equal(ki[~nan], ti[~nan]), f"{label}: peak index differs")
+    fin = np.isfinite(ts)
+    err = float(np.abs(ks[fin] - ts[fin]).max()) if fin.any() else 0.0
+    check(err <= PEAK_SHIFT_TOL, f"{label}: shift differs by {err} px")
+    rel = np.abs(km[~nan] - tm[~nan]) <= PEAK_MAXVAL_RTOL * np.abs(tm[~nan])
+    check(rel.all(), f"{label}: maxval differs")
+    return err
+
+
+def render_affine(n_frames: int, step_deg: float, step_zoom: float, shape=(480, 480),
+                  center=None, seed: int = 0) -> list:
+    """uint8 gray frames of a band-limited texture rotated by ``step_deg``
+    and zoomed by ``step_zoom`` per frame about ``center`` (x, y; default
+    the frame centre), rendered with cubic splines.  Frame i shows the
+    texture point ``c + R(-i a)(q - c) / z^i`` at pixel q, R the rotation
+    of ``cv2.getRotationMatrix2D``, so the estimator decodes each step as a
+    rotation of ``+a`` and a scale of ``1 / z``."""
+    from scipy.ndimage import map_coordinates
+    from oracle import smooth_random_image
+
+    h, w = shape
+    cx, cy = center if center is not None else (w / 2.0, h / 2.0)
+    tex = smooth_random_image(np.random.default_rng(seed), 1024, cutoff=0.25).astype(np.float64)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    frames = []
+    for i in range(n_frames):
+        a = np.deg2rad(step_deg * i)
+        z = step_zoom ** i
+        u, v = (xs - cx) / z, (ys - cy) / z
+        # R(-a) of cv2's rotation [[cos, sin], [-sin, cos]]
+        px = np.cos(a) * u - np.sin(a) * v + 512.0
+        py = np.sin(a) * u + np.cos(a) * v + 512.0
+        g = map_coordinates(tex, [py, px], order=3, mode="wrap")
+        frames.append(np.clip(np.rint(g), 0, 255).astype(np.uint8))
+    return frames
+
+
+def check_peak_kernel(dev) -> tuple:
+    """Phase 6.  Returns (max shift difference, kernel ms, twin ms) at the
+    scale/rotation shape (P = 1, N = 480)."""
+    import torch
+
+    from oracle import make_accuracy_pairs
+
+    from mrs_optic_flow_tpu_torch.models.scale_rotation import (
+        ScaleRotationConfig,
+        ScaleRotationEstimator,
+    )
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        peak_refine_raw as kernel,
+        peak_refine_raw_ref as twin,
+    )
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import correlation_surface_raw
+    from mrs_optic_flow_tpu_torch.ops.preprocess import patchify
+
+    errs = []
+    # log-polar surfaces at N = 480, as the scale/rotation estimator makes them
+    est = ScaleRotationEstimator(ScaleRotationConfig(), device=dev)
+    frames = torch.from_numpy(np.stack(render_affine(5, 2.0, 1.02))).to(dev)
+    lp = est.logpolar_batch(frames)
+    lp_raw = correlation_surface_raw(lp[1:], lp[:-1], backend="dft").contiguous()
+    errs.append(compare_peak(lp_raw[:1], 240, "log-polar P=1"))
+    errs.append(compare_peak(lp_raw, 240, "log-polar P=4"))
+    # FftMethod's fft route: [16 B, 120, 120] surfaces
+    prev_np, curr_np, _, _ = make_accuracy_pairs(np.random.default_rng(2), 4)
+    fft_raw = correlation_surface_raw(
+        patchify(torch.from_numpy(curr_np).to(dev), 120),
+        patchify(torch.from_numpy(prev_np).to(dev), 120), backend="fft",
+    ).reshape(64, 120, 120).contiguous()
+    errs.append(compare_peak(fft_raw, 55, "fft route [64, 120, 120]"))
+
+    # edge cases at N = 120 (raw index (y, x) sits at shifted ((y+60)%120, (x+60)%120))
+    edge = torch.zeros((6, 120, 120), dtype=torch.float32, device=dev)
+    edge[0, 5, 7] = edge[0, 100, 3] = 1.0  # tie: the smaller shifted index wins
+    edge[1, 10, 10] = 2.0
+    edge[1, 3, 4] = float("nan")  # NaN inside the window
+    edge[2, 10, 10] = 2.0
+    edge[2, 60, 60] = float("nan")  # shifted (0, 0): outside radius 55, ignored
+    edge[3] = -1.0  # all negative: a masked zero is the maximum
+    edge[4, 60, 63] = 3.0  # shifted (0, 3): on the edge, centroid clamped
+    edge[4, 60, 64] = edge[4, 61, 63] = 1.0
+    # surface 5 stays zero
+    errs.append(compare_peak(edge, 55, "edge cases, radius 55"))
+    errs.append(compare_peak(edge, 60, "edge cases, radius 60"))
+    km = kernel(edge, search_radius=55)[1]
+    check(bool(torch.isnan(km[1])) and not bool(torch.isnan(km[2])), "NaN inside/outside the window")
+    err = max(errs)
+
+    ms = time_cuda(lambda: kernel(lp_raw[:1], search_radius=240), 200)
+    plain_ms = time_cuda(lambda: twin(lp_raw[:1], search_radius=240), 50)
+    ms_fft = time_cuda(lambda: kernel(fft_raw, search_radius=55), 200)
+    plain_fft = time_cuda(lambda: twin(fft_raw, search_radius=55), 50)
+    say(f"  max|shift - twin| {err:.3g} px; [1, 480, 480]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; "
+        f"[64, 120, 120]: kernel {ms_fft:.4f} ms, twin {plain_fft:.4f} ms")
+    say("[6 kernel B] matches its twin on log-polar, fft-route, tie, NaN, edge and zero surfaces")
+    return err, ms, plain_ms
+
+
+def check_sad_kernel(dev) -> tuple:
+    """Phase 7.  Returns (max abs difference on integer inputs, kernel ms,
+    twin ms) at the default geometry (9 cells, S = 120, R = 21)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import block_matching
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import sad_search as kernel
+
+    s, r, g = 120, 21, 9
+    rng = np.random.default_rng(5)
+
+    def run(fn, c, p):
+        return fn(c, p, block_size=s, scan_radius=r)
+
+    curr = torch.from_numpy(rng.integers(0, 256, (g, s, s)).astype(np.float32)).to(dev)
+    prev = torch.from_numpy(rng.integers(0, 256, (g, s + 2 * r, s + 2 * r)).astype(np.float32)).to(dev)
+    k = run(kernel, curr, prev)
+    t = run(block_matching.sad_search, curr, prev)
+    check(tuple(k.shape) == (g, 2 * r + 1, 2 * r + 1), f"SAD map shape {tuple(k.shape)}")
+    check(torch.equal(k, t), f"integer inputs: max |kernel - twin| {float((k - t).abs().max())}")
+    check(torch.equal(run(kernel, curr, prev), k), "a repeated run differs")
+    check(torch.equal(run(kernel, curr[:1].contiguous(), prev[:1].contiguous()), k[:1]),
+          "G=1 differs from the same cell in G=9")
+    cf = torch.from_numpy(rng.uniform(0, 255, (g, s, s)).astype(np.float32)).to(dev)
+    pf = torch.from_numpy(rng.uniform(0, 255, (g, s + 2 * r, s + 2 * r)).astype(np.float32)).to(dev)
+    kf, tf = run(kernel, cf, pf), run(block_matching.sad_search, cf, pf)
+    rel = float(((kf - tf).abs() / tf.abs()).max())
+    check(rel <= SAD_RTOL, f"float inputs: relative difference {rel}")
+    ms = time_cuda(lambda: run(kernel, curr, prev), 50)
+    plain_ms = time_cuda(lambda: run(block_matching.sad_search, curr, prev), 10)
+    say(f"  integer inputs bit-identical, float inputs within {rel:.3g} relative; "
+        f"[9, 43, 43]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    say("[7 kernel C] matches its twin; G=1 and repeated runs identical")
+    return float((k - t).abs().max()), ms, plain_ms
+
+
 def render_frames(n_frames: int, seed: int = 0) -> list:
     """BGR uint8 752x480 frames of a nadir camera over a band-limited periodic
     texture, one texture pixel per image pixel, moving at ``V_TRUE``: pixel
@@ -171,25 +356,33 @@ def render_frames(n_frames: int, seed: int = 0) -> list:
     return frames
 
 
-def run_node(dev) -> int:
-    """Phase 5.  Returns the kernel launches of the node's run."""
-    from mrs_optic_flow_tpu_torch.config import NodeConfig
-    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import phase_correlate_frames as kernel
+def kernel_wrappers() -> dict:
+    """Kernel name -> its wrapper, whose ``LAUNCHES`` counts its launches."""
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels
+
+    return {name: getattr(cuda_kernels, name) for name in KERNELS}
+
+
+def drive_node(dev, config, frames, label: str):
+    """Warm a node up, then drive it with ``frames`` (BGR 752x480 uint8) at
+    ``DT``, level, at ``HEIGHT``, with odometry at ``V_TRUE``.  Every
+    kernel's launch count is set to 0 just before the frames and read just
+    after.  Returns (node, published messages, launches per kernel,
+    per-frame latency in ms of the processed frames)."""
     from mrs_optic_flow_tpu_torch.runtime.msgs import (
         CameraInfo, Float64Stamped, ImageMsg, Imu, Odometry,
     )
     from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
 
     published = []
-    node = OpticFlowNode(
-        NodeConfig(), device=dev, publish=lambda t, m: published.append((t, m)), log=say,
-    )
+    node = OpticFlowNode(config, device=dev, publish=lambda t, m: published.append((t, m)), log=say)
     node.on_camera_info(CameraInfo(k=[FX, 0, 376.0, 0, FY, 240.0, 0, 0, 1], d=[0.0] * 5))
     node.set_transforms((0.0, 0.0, 0.0, 1.0))
-    frames = render_frames(N_FRAMES)
-    say(f"  warmup {node.warmup():.2f} s")
+    say(f"  {label}: warmup {node.warmup():.2f} s")
 
-    kernel.LAUNCHES = 0
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.LAUNCHES = 0
     for i, frame in enumerate(frames):
         t = 100.0 + i * DT
         node.on_imu(Imu(stamp=t, angular_velocity=(0.0, 0.0, 0.0),
@@ -198,28 +391,104 @@ def run_node(dev) -> int:
                                   linear_velocity=(V_TRUE[0], V_TRUE[1], 0.0)))
         node.on_height(Float64Stamped(stamp=t, value=HEIGHT))
         node.on_image(ImageMsg(stamp=t, data=frame))
-    launches = kernel.LAUNCHES
+    launches = {name: fn.LAUNCHES for name, fn in wrappers.items()}
 
-    twists = [m for t, m in published if t == "velocity_out"]
     # raw frame to published twist; the first frame only primes the node
     lat_ms = np.array([m for t, m in published if t == "processing_latency_out"][1:]) * 1e3
-    health = node.health
-    # the first published twist is the first-frame copy (zero shift), as in
-    # tests/test_node.py
+    say(f"  {label}: per-frame latency p50 {np.percentile(lat_ms, 50):.3f} ms, "
+        f"p90 {np.percentile(lat_ms, 90):.3f} ms over {len(lat_ms)} frames; launches {launches}")
+    return node, published, launches, lat_ms
+
+
+def check_twists(node, published, tol: float, label: str) -> None:
+    """Every published twist after the first (the first-frame copy, a zero
+    shift) within ``tol`` of ``V_TRUE`` in x and y; no failed frame."""
+    twists = [m for t, m in published if t == "velocity_out"]
     v = np.array([tw.linear[:2] for tw in twists[1:]])
     err = np.abs(v - np.array(V_TRUE)).max(axis=0)
-    say(f"  {len(twists)} twists, mean v {v.mean(axis=0).round(4).tolist()} m/s, "
-        f"max |v - truth| {err.round(4).tolist()} m/s; health {health}; launches {launches}")
-    host = node.profiler.stats()["frame_program"]
-    say(f"  per-frame latency p50 {np.percentile(lat_ms, 50):.3f} ms, "
-        f"p90 {np.percentile(lat_ms, 90):.3f} ms over {len(lat_ms)} frames; "
-        f"host time to issue the frame chain p50 {host['p50_s'] * 1e3:.3f} ms")
-    check(len(twists) == N_FRAMES - 1, f"{len(twists)} twists for {N_FRAMES} frames")
-    check(np.isfinite(v).all() and np.all(err <= TWIST_TOL), f"twist error {err} m/s")
+    health = node.health
+    say(f"  {label}: {len(twists)} twists, mean v {v.mean(axis=0).round(4).tolist()} m/s, "
+        f"max |v - truth| {err.round(4).tolist()} m/s; health {health}")
+    check(len(twists) == N_FRAMES - 1, f"{label}: {len(twists)} twists for {N_FRAMES} frames")
+    check(np.isfinite(v).all() and np.all(err <= tol), f"{label}: twist error {err} m/s")
     check(health["consecutive_failures"] == 0, health)
     check(health["frames_processed"] == len(twists), health)
+
+
+def run_node(dev) -> int:
+    """Phase 5.  Returns the kernel launches of the node's run."""
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+
+    node, published, launches, _ = drive_node(dev, NodeConfig(), render_frames(N_FRAMES), "method 4")
+    host = node.profiler.stats()["frame_program"]
+    say(f"  host time to issue the frame chain p50 {host['p50_s'] * 1e3:.3f} ms")
+    check_twists(node, published, TWIST_TOL, "method 4")
     say("[5 node] twists within budget")
-    return launches
+    return launches["phase_correlate_frames"]
+
+
+def run_scale_rotation_node(dev) -> int:
+    """Phase 8.  Returns kernel B's launches in the node's run."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from mrs_optic_flow_tpu_torch.models.scale_rotation import (
+        ScaleRotationConfig,
+        ScaleRotationEstimator,
+    )
+
+    gray = render_affine(N_FRAMES, SR_STEP_DEG, SR_STEP_ZOOM, shape=(480, 752), center=(376.0, 240.0))
+    frames = [np.repeat(g[..., None], 3, axis=-1) for g in gray]
+    node, published, launches, _ = drive_node(
+        dev, NodeConfig(scale_rotation=True), frames, "scale/rotation")
+    check(node.scale_rotation_estimator.config.lp_res == 480, "log-polar size")
+    sr = [m for t, m in published if t == "scale_rotation_out"]
+    check(len(sr) == N_FRAMES - 1, f"{len(sr)} scale/rotation messages for {N_FRAMES} frames")
+    check(sr[0]["scale"] == 1.0 and sr[0]["yaw_rate"] == 0.0, f"first decode {sr[0]}")
+    rot_deg = np.array([np.rad2deg(m["yaw_rate"] * DT) for m in sr[1:]])
+    scale = np.array([m["scale"] for m in sr[1:]])
+    rot_err = np.abs(rot_deg - SR_STEP_DEG)
+    scale_err = np.abs(scale - 1.0 / SR_STEP_ZOOM)
+    say(f"  decodes: rotation {rot_deg.mean():.4f} deg (truth {SR_STEP_DEG}), max err "
+        f"{rot_err.max():.4f} deg; scale {scale.mean():.5f} (truth {1 / SR_STEP_ZOOM:.5f}), "
+        f"max err {scale_err.max():.5f}")
+    check(np.all(rot_err <= SR_ROT_TOL), f"rotation errors {rot_err} deg")
+    check(np.all(scale_err <= SR_SCALE_TOL), f"scale errors {scale_err}")
+    check(launches["peak_refine_raw"] >= N_FRAMES - 1,
+          f"{launches['peak_refine_raw']} kernel B launches for {N_FRAMES - 1} processed frames")
+
+    # the same crops through the estimator on the kernel route and the twin's
+    crops = torch.from_numpy(np.stack(gray)[:, :, 136:616]).to(dev)
+    decodes = []
+    for use_pallas in (True, False):
+        est = ScaleRotationEstimator(ScaleRotationConfig(use_pallas=use_pallas), device=dev)
+        state, out = est.init_state(), []
+        for crop in crops:
+            state, res = est.step(state, crop)
+            out.append([float(res.scale), float(res.rotation)])
+        decodes.append(np.array(out))
+    twin_err = float(np.abs(decodes[0] - decodes[1]).max())
+    say(f"  kernel vs twin decodes: max difference {twin_err:.3g}")
+    check(twin_err <= SR_TWIN_TOL, f"kernel and twin decodes differ by {twin_err}")
+    say("[8 scale/rotation node] decodes within budget")
+    return launches["peak_refine_raw"]
+
+
+def run_block_matching_nodes(dev) -> int:
+    """Phase 9.  Returns kernel C's launches in the two nodes' runs."""
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+
+    frames = render_frames(N_FRAMES)
+    total = 0
+    for method in (3, 5):
+        label = f"method {method}"
+        node, published, launches, _ = drive_node(dev, NodeConfig(method=method), frames, label)
+        check_twists(node, published, BM_TWIST_TOL, label)
+        check(launches["sad_search"] >= N_FRAMES - 1,
+              f"{label}: {launches['sad_search']} kernel C launches for {N_FRAMES - 1} frames")
+        total += launches["sad_search"]
+    say("[9 block-matching nodes] twists within budget")
+    return total
 
 
 def main() -> int:
@@ -242,29 +511,39 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    log = cuda_kernels.build()
-    cuda_kernels.load_library()
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    logs = cuda_kernels.build()
+    for name, log in logs.items():
+        cuda_kernels.load_library(name)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {name}: {line.strip()}")
     say(f"[2 build] {time.perf_counter() - t0:.1f} s")
 
     dev = torch.device("cuda")
-    err_twin = check_kernel(dev)
-    ms_one, ms_twin_one = measure_throughput(dev)
-    launches = run_node(dev)
-    check(launches >= N_FRAMES - 1, f"{launches} kernel launches for {N_FRAMES - 1} processed frames")
+    err_a = check_kernel(dev)
+    ms_a, plain_a = measure_throughput(dev)
+    launches_a = run_node(dev)
+    check(launches_a >= N_FRAMES - 1, f"{launches_a} kernel launches for {N_FRAMES - 1} processed frames")
+    err_b, ms_b, plain_b = check_peak_kernel(dev)
+    err_c, ms_c, plain_c = check_sad_kernel(dev)
+    launches_b = run_scale_rotation_node(dev)
+    launches_c = run_block_matching_nodes(dev)
 
+    rows = {
+        "phase_correlate_frames": (launches_a, err_a, ms_a, plain_a),
+        "peak_refine_raw": (launches_b, err_b, ms_b, plain_b),
+        "sad_search": (launches_c, err_c, ms_c, plain_c),
+    }
     say(json.dumps({"kernels": [{
-        "name": "phase_correlate_frames",
+        "name": name,
         "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
+        "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1],
         "launches": launches,
-        "max_abs_err": err_twin,
-        "ms": ms_one,
-        "plain_ms": ms_twin_one,
-    }]}))
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    } for name, (launches, err, ms, plain_ms) in rows.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -5,7 +5,9 @@ is the node's streaming state and calibration, as the JAX node's
 ``save_state`` writes them to ``.npz`` (``runtime/node.py:1048-1075``): the
 flow carry ``prev``/``first``, ``begin``, ``first_image``, ``uav_height``,
 ``angular_rate_quat``, ``c2b_quat``, ``cam_yaw``, ``camera_matrix``,
-``dist_coeffs`` and the readiness flags ``got_height``/``got_tfs``.
+``dist_coeffs``, the readiness flags ``got_height``/``got_tfs``, and the
+scale/rotation carry ``sr_lp``/``sr_first`` (an empty ``sr_lp`` when the
+writer ran no estimator).
 """
 
 from __future__ import annotations
@@ -36,6 +38,18 @@ class NodeState:
     dist_coeffs: Optional[np.ndarray]
     got_height: Optional[bool]
     got_tfs: Optional[bool]
+    #: scale/rotation carry; None when the checkpoint has none or the
+    #: reading node runs no estimator
+    sr_lp: Optional[torch.Tensor] = None
+    sr_first: Optional[bool] = None
+
+
+def _adapt_carry(carry: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A carry of the other dtype converted, through the 8-bit rounding when
+    the node carries uint8."""
+    if carry.dtype == dtype:
+        return carry
+    return quantize_u8(carry) if dtype == torch.uint8 else carry.to(dtype)
 
 
 def node_state_from_numpy(
@@ -44,15 +58,20 @@ def node_state_from_numpy(
     *,
     carry_shape: tuple,
     carry_dtype: torch.dtype,
+    sr_shape: Optional[tuple] = None,
+    sr_dtype: Optional[torch.dtype] = None,
 ) -> NodeState:
-    """Checkpoint arrays -> :class:`NodeState` with the flow carry on
+    """Checkpoint arrays -> :class:`NodeState` with the carries on
     ``device``.
 
-    The carry must have the node's frame geometry ``carry_shape`` (a
+    The flow carry must have the node's frame geometry ``carry_shape`` (a
     mismatch raises ``ValueError``, as the JAX node does); a carry of the
     other dtype is converted, through the 8-bit rounding when the node
     carries uint8.  Checkpoints without the readiness flags infer them from
-    the presence of a camera matrix, as the JAX node does.
+    the presence of a camera matrix, as the JAX node does.  ``sr_shape`` and
+    ``sr_dtype`` describe the node's scale/rotation carry (None when it runs
+    no estimator); a non-empty ``sr_lp`` gets the same geometry check and
+    dtype adaptation.
     """
     prev = torch.from_numpy(np.array(arrays["prev"])).to(device)
     if tuple(prev.shape) != tuple(carry_shape):
@@ -60,8 +79,16 @@ def node_state_from_numpy(
             f"checkpoint flow carry {tuple(prev.shape)} does not match this "
             f"node's frame geometry {tuple(carry_shape)}"
         )
-    if prev.dtype != carry_dtype:
-        prev = quantize_u8(prev) if carry_dtype == torch.uint8 else prev.to(carry_dtype)
+    prev = _adapt_carry(prev, carry_dtype)
+    sr_lp = sr_first = None
+    if sr_shape is not None and "sr_lp" in arrays and arrays["sr_lp"].size:
+        if tuple(arrays["sr_lp"].shape) != tuple(sr_shape):
+            raise ValueError(
+                f"checkpoint log-polar carry {tuple(arrays['sr_lp'].shape)} does not "
+                f"match this node's {tuple(sr_shape)}"
+            )
+        sr_lp = _adapt_carry(torch.from_numpy(np.array(arrays["sr_lp"])).to(device), sr_dtype)
+        sr_first = bool(arrays["sr_first"])
     begin = float(arrays["begin"])
     has_camera = arrays["camera_matrix"].size > 0
     if "got_height" in arrays:
@@ -82,4 +109,6 @@ def node_state_from_numpy(
         dist_coeffs=np.asarray(arrays["dist_coeffs"]) if has_camera else None,
         got_height=got_height,
         got_tfs=got_tfs,
+        sr_lp=sr_lp,
+        sr_first=sr_first,
     )

@@ -1,15 +1,25 @@
 """Hand-written CUDA kernels and their plain PyTorch twins.
 
-Counterpart of :mod:`mrs_optic_flow_tpu.ops.pallas_kernels`.  Kernel A of
-the port, :func:`phase_correlate_frames`, replaces
-``pallas_kernels.py::phase_correlate_frames_pallas``: whole ``[B, H, W]``
-frame pairs in, one ``(shift, maxval)`` per patch of the ``q x q`` grid out.
-Its source is ``csrc/phase_correlate_frames.cu``, compiled with ``nvcc`` for
-``sm_90a`` into ``build/torch_kernels/`` at first use and bound with ctypes.
+Counterpart of :mod:`mrs_optic_flow_tpu.ops.pallas_kernels` and of the
+Pallas SAD kernel in :mod:`mrs_optic_flow_tpu.ops.block_matching`:
 
-Dispatch is by the device of the tensors: CPU tensors take the plain twin
-:func:`phase_correlate_frames_ref`; CUDA tensors launch the kernel or raise.
-Nothing falls back from the kernel to the twin.
+- kernel A, :func:`phase_correlate_frames`, replaces
+  ``pallas_kernels.py::phase_correlate_frames_pallas``: whole ``[B, H, W]``
+  frame pairs in, one ``(shift, maxval)`` per patch of the ``q x q`` grid
+  out (``csrc/phase_correlate_frames.cu``);
+- kernel B, :func:`peak_refine_raw`, replaces
+  ``pallas_kernels.py::peak_refine_raw_pallas``: fftshift, mask, argmax and
+  centroid of raw correlation surfaces (``csrc/peak_refine_raw.cu``);
+- kernel C, :func:`sad_search`, replaces
+  ``block_matching.py::sad_search_pallas``: the exhaustive block-matching
+  SAD map of each grid cell (``csrc/sad_search.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into a library of its own
+under ``build/torch_kernels/`` at first use, and is bound with ctypes.
+
+Dispatch is by the device of the tensors: CPU tensors take the plain twin;
+CUDA tensors launch the kernel or raise.  Nothing falls back from a kernel to
+its twin.  Each wrapper counts its launches in ``<wrapper>.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -19,28 +29,56 @@ import functools
 import os
 import pathlib
 import subprocess
-from typing import Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mrs_optic_flow_tpu_torch.ops import block_matching
 from mrs_optic_flow_tpu_torch.ops.phase_correlate import (
     DEFAULT_CENTROID_RADIUS,
     DEFAULT_SEARCH_RADIUS,
     _dft_matrices,
     correlation_surface,
     peak_refine,
+    shift_and_mask,
 )
 from mrs_optic_flow_tpu_torch.ops.preprocess import patchify
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "phase_correlate_frames.cu"
+CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-LIBRARY = BUILD_DIR / "libphase_correlate_frames.so"
+#: kernel name -> its source in ``csrc/``; each builds into ``lib<name>.so``
+SOURCES = {
+    "phase_correlate_frames": "phase_correlate_frames.cu",
+    "peak_refine_raw": "peak_refine_raw.cu",
+    "sad_search": "sad_search.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: kernel name -> {C function: (restype, argtypes)}
+_SIGNATURES = {
+    "phase_correlate_frames": {
+        "pcf_smem_bytes": (_LL, [_I]),
+        # curr, prev, is_u8, batch, height, width, n, q, radii, tab, shift,
+        # maxval, stream
+        "pcf_phase_correlate_frames": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                            _P, _P, _P, _P]),
+    },
+    "peak_refine_raw": {
+        # surf, p, n, radii, shift, maxval, index, stream
+        "prr_peak_refine_raw": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    },
+    "sad_search": {
+        "sad_smem_bytes": (_LL, [_I, _I]),
+        # curr, prev, g, s, r, out, stream
+        "sad_sad_search": (_I, [_P, _P, _I, _I, _I, _P, _P]),
+    },
+}
 
 
 def _nvcc() -> str:
@@ -52,39 +90,73 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> str:
-    """Compile the kernel library from the sources in the package with
-    ``nvcc``; returns the compiler's log (``-Xptxas=-v``: registers, shared
-    memory and spills per kernel).  Raises on a failed build."""
+def library_path(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the kernel libraries ``names`` (default: all) from the
+    sources in the package, one ``nvcc`` process per source, all started
+    together.  Returns each kernel's compiler log (``-Xptxas=-v``:
+    registers, shared memory and spills).  Raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    jobs = {}
+    for name in names or SOURCES:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp)
+    logs, failed = {}, []
+    for name, (proc, tmp) in jobs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, library_path(name))
+        else:
+            failed.append(f"{SOURCES[name]}: nvcc failed ({proc.returncode}):\n{logs[name]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built first when missing or older than its source."""
-    if not LIBRARY.exists() or SOURCE.stat().st_mtime > LIBRARY.stat().st_mtime:
-        build()
-    lib = ctypes.CDLL(str(LIBRARY))
-    lib.pcf_smem_bytes.restype = ctypes.c_longlong
-    lib.pcf_smem_bytes.argtypes = [ctypes.c_int]
-    lib.pcf_phase_correlate_frames.restype = ctypes.c_int
-    lib.pcf_phase_correlate_frames.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # curr, prev, is_u8
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # batch, height, width
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, q, radii
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # tab, shift, maxval
-        ctypes.c_void_p,  # stream
-    ]
+def load_library(name: str) -> ctypes.CDLL:
+    """Kernel ``name``'s library, built first when missing or older than its
+    source."""
+    lib_path = library_path(name)
+    if not lib_path.exists() or (CSRC / SOURCES[name]).stat().st_mtime > lib_path.stat().st_mtime:
+        build([name])
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (restype, argtypes) in _SIGNATURES[name].items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
     return lib
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
+    """Every tensor contiguous and on the first one's CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: expected tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def _smem_fits(smem: int, device: torch.device, what: str) -> None:
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if smem + 1024 > limit:  # 1 KiB for the kernel's static shared memory
+        raise ValueError(f"{what} needs {smem} B of shared memory; the device allows {limit}")
+
+
+# --------------------------------------------------------------------------- #
+# kernel A: whole-frame phase correlation                                      #
+# --------------------------------------------------------------------------- #
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,7 +187,7 @@ def phase_correlate_frames_ref(
     search_radius: int = DEFAULT_SEARCH_RADIUS,
     centroid_radius: int = DEFAULT_CENTROID_RADIUS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch twin of the kernel: patchify, then the ``dft``
+    """Plain PyTorch twin of kernel A: patchify, then the ``dft``
     correlation surface and the peak refine of
     :mod:`~mrs_optic_flow_tpu_torch.ops.phase_correlate`.  Same contract as
     :func:`phase_correlate_frames`."""
@@ -148,23 +220,17 @@ def phase_correlate_frames(
             curr, prev, patch=patch, search_radius=search_radius,
             centroid_radius=centroid_radius,
         )
-    if curr.device.type != "cuda" or prev.device != curr.device:
-        raise ValueError(f"expected both frames on one CUDA device, got {curr.device} and {prev.device}")
+    _check_cuda("phase_correlate_frames", curr, prev)
     if curr.dtype not in (torch.uint8, torch.float32) or prev.dtype != curr.dtype:
         raise ValueError(f"expected uint8 or float32 frames of one dtype, got {curr.dtype} and {prev.dtype}")
     if curr.ndim != 3 or prev.shape != curr.shape:
         raise ValueError(f"expected two [B, H, W] batches, got {tuple(curr.shape)} and {tuple(prev.shape)}")
-    if not (curr.is_contiguous() and prev.is_contiguous()):
-        raise ValueError("frames must be contiguous")
     if search_radius < 0 or centroid_radius < 0:
         raise ValueError("radii must be non-negative")
     b, h, w = curr.shape
     q = _grid(curr.shape, patch)
-    lib = load_library()
-    smem = lib.pcf_smem_bytes(patch)
-    limit = torch.cuda.get_device_properties(curr.device).shared_memory_per_block_optin
-    if smem + 1024 > limit:  # 1 KiB for the kernel's static shared memory
-        raise ValueError(f"patch {patch} needs {smem} B of shared memory; the device allows {limit}")
+    lib = load_library("phase_correlate_frames")
+    _smem_fits(lib.pcf_smem_bytes(patch), curr.device, f"patch {patch}")
 
     shift = torch.empty((b, q * q, 2), dtype=torch.float32, device=curr.device)
     maxval = torch.empty((b, q * q), dtype=torch.float32, device=curr.device)
@@ -176,10 +242,138 @@ def phase_correlate_frames(
             tab.data_ptr(), shift.data_ptr(), maxval.data_ptr(),
             torch.cuda.current_stream(curr.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"phase_correlate_frames launch failed: CUDA error {err}")
+    _check_launch(err, "phase_correlate_frames")
     phase_correlate_frames.LAUNCHES += 1
     return shift, maxval
 
 
 phase_correlate_frames.LAUNCHES = 0
+
+
+# --------------------------------------------------------------------------- #
+# kernel B: peak refine of raw correlation surfaces                            #
+# --------------------------------------------------------------------------- #
+
+
+def peak_refine_raw_ref(
+    raw: torch.Tensor,
+    *,
+    search_radius: int = DEFAULT_SEARCH_RADIUS,
+    centroid_radius: int = DEFAULT_CENTROID_RADIUS,
+    with_index: bool = False,
+):
+    """Plain PyTorch twin of kernel B: the fftshift and search-window mask
+    of :func:`~mrs_optic_flow_tpu_torch.ops.phase_correlate.shift_and_mask`,
+    then :func:`~mrs_optic_flow_tpu_torch.ops.phase_correlate.peak_refine`.
+    Same contract as :func:`peak_refine_raw`."""
+    surf = shift_and_mask(raw.to(torch.float32), search_radius)
+    shift, maxval = peak_refine(surf, centroid_radius=centroid_radius)
+    if not with_index:
+        return shift, maxval
+    n = raw.shape[-1]
+    return shift, maxval, torch.argmax(surf.reshape(surf.shape[:-2] + (n * n,)), dim=-1)
+
+
+def peak_refine_raw(
+    raw: torch.Tensor,
+    *,
+    search_radius: int = DEFAULT_SEARCH_RADIUS,
+    centroid_radius: int = DEFAULT_CENTROID_RADIUS,
+    with_index: bool = False,
+):
+    """Kernel B: ``[..., N, N]`` raw (unshifted) float32 correlation
+    surfaces -> ``(shift [..., 2], maxval [...])``, shift relative to the
+    centre ``(N//2, N//2)`` in (x, y) order.  ``with_index`` adds the peak's
+    fftshifted flat index ``[...]`` (undefined where maxval is NaN).
+
+    CPU tensors run :func:`peak_refine_raw_ref`.  CUDA tensors launch
+    ``csrc/peak_refine_raw.cu`` on the current stream; each launch adds one
+    to ``peak_refine_raw.LAUNCHES``.
+    """
+    if raw.device.type == "cpu":
+        return peak_refine_raw_ref(
+            raw, search_radius=search_radius, centroid_radius=centroid_radius,
+            with_index=with_index,
+        )
+    _check_cuda("peak_refine_raw", raw)
+    n = raw.shape[-1]
+    if raw.dtype != torch.float32 or raw.ndim < 2 or raw.shape[-2] != n:
+        raise ValueError(f"expected [..., N, N] float32 surfaces, got {raw.dtype} {tuple(raw.shape)}")
+    if search_radius < 0 or centroid_radius < 0:
+        raise ValueError("radii must be non-negative")
+    lead = tuple(raw.shape[:-2])
+    p = int(np.prod(lead, dtype=np.int64))
+    shift = torch.empty(lead + (2,), dtype=torch.float32, device=raw.device)
+    maxval = torch.empty(lead, dtype=torch.float32, device=raw.device)
+    index = torch.empty(lead, dtype=torch.int32, device=raw.device) if with_index else None
+    if p:
+        lib = load_library("peak_refine_raw")
+        with torch.cuda.device(raw.device):
+            err = lib.prr_peak_refine_raw(
+                raw.data_ptr(), p, n, search_radius, centroid_radius,
+                shift.data_ptr(), maxval.data_ptr(),
+                index.data_ptr() if with_index else None,
+                torch.cuda.current_stream(raw.device).cuda_stream,
+            )
+        _check_launch(err, "peak_refine_raw")
+        peak_refine_raw.LAUNCHES += 1
+    return (shift, maxval, index.long()) if with_index else (shift, maxval)
+
+
+peak_refine_raw.LAUNCHES = 0
+
+
+# --------------------------------------------------------------------------- #
+# kernel C: block-matching SAD maps                                            #
+# --------------------------------------------------------------------------- #
+
+
+def sad_search(
+    curr_blocks: torch.Tensor,
+    prev_regions: torch.Tensor,
+    *,
+    block_size: int,
+    scan_radius: int,
+) -> torch.Tensor:
+    """Kernel C: ``[G, S, S]`` current blocks and ``[G, S+2R, S+2R]``
+    previous regions (float32) -> ``[G, D, D]`` float32 SAD maps, D = 2R+1,
+    rows the y shift and columns the x shift (the contract of
+    :func:`~mrs_optic_flow_tpu_torch.ops.block_matching.sad_search`).
+
+    CPU tensors run that plain twin.  CUDA tensors launch
+    ``csrc/sad_search.cu`` on the current stream; each launch adds one to
+    ``sad_search.LAUNCHES``.
+    """
+    if curr_blocks.device.type == "cpu" and prev_regions.device.type == "cpu":
+        return block_matching.sad_search(
+            curr_blocks, prev_regions, block_size=block_size, scan_radius=scan_radius
+        )
+    _check_cuda("sad_search", curr_blocks, prev_regions)
+    s, r = block_size, scan_radius
+    g = curr_blocks.shape[0]
+    if curr_blocks.dtype != torch.float32 or prev_regions.dtype != torch.float32:
+        raise ValueError(f"expected float32 blocks, got {curr_blocks.dtype} and {prev_regions.dtype}")
+    if (tuple(curr_blocks.shape) != (g, s, s)
+            or tuple(prev_regions.shape) != (g, s + 2 * r, s + 2 * r)):
+        raise ValueError(
+            f"expected [G, {s}, {s}] blocks and [G, {s + 2 * r}, {s + 2 * r}] regions, "
+            f"got {tuple(curr_blocks.shape)} and {tuple(prev_regions.shape)}"
+        )
+    if s <= 0 or r < 0:
+        raise ValueError("block_size must be positive and scan_radius non-negative")
+    d = 2 * r + 1
+    out = torch.empty((g, d, d), dtype=torch.float32, device=curr_blocks.device)
+    if g:
+        lib = load_library("sad_search")
+        _smem_fits(lib.sad_smem_bytes(s, r), curr_blocks.device, f"block {s}, radius {r}")
+        with torch.cuda.device(curr_blocks.device):
+            err = lib.sad_sad_search(
+                curr_blocks.data_ptr(), prev_regions.data_ptr(), g, s, r, out.data_ptr(),
+                torch.cuda.current_stream(curr_blocks.device).cuda_stream,
+            )
+        _check_launch(err, "sad_search")
+        sad_search.LAUNCHES += 1
+    return out
+
+
+sad_search.LAUNCHES = 0

@@ -16,8 +16,8 @@ patch is the reference's fused OpenCL ``phaseCorrelateField``
 
 Sign convention: the returned shift ``d`` satisfies ``curr(x) ~= prev(x - d)``.
 
-These functions are the plain twin of the hand-written CUDA kernel in
-:mod:`mrs_optic_flow_tpu_torch.ops.cuda_kernels`.  Two spectral backends:
+These functions are the plain twins of the hand-written CUDA kernels A and
+B in :mod:`mrs_optic_flow_tpu_torch.ops.cuda_kernels`.  Two spectral backends:
 ``"dft"`` (DFT as float32 matrix products with tables built in float64, the
 JAX package's MXU formulation) and ``"fft"`` (``torch.fft``).  Inputs are
 ``[..., N, N]``; shifts come out ``[..., 2]`` in (x, y) order.
@@ -52,7 +52,10 @@ def _dft_matrices(n: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _dft_tensors(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_dft_matrices` on ``device``, copied there once per size (at
+    the log-polar size, 480, the two tables are 1.8 MB)."""
     c, s = _dft_matrices(n)
     return torch.from_numpy(c).to(device), torch.from_numpy(s).to(device)
 
@@ -76,16 +79,19 @@ def _idft2_real_output(rr: torch.Tensor, ri: torch.Tensor) -> torch.Tensor:
     return (c @ ur + s @ ui) * (1.0 / (n * n))
 
 
-def correlation_surface(
+def correlation_surface_raw(
     curr: torch.Tensor,
     prev: torch.Tensor,
     *,
-    search_radius: int = DEFAULT_SEARCH_RADIUS,
     backend: str = "fft",
 ) -> torch.Tensor:
-    """fftshifted, radius-masked phase-correlation surface ``[..., N, N]``
-    (steps 1-4): the zero-shift response sits at ``(N//2, N//2)`` and entries
-    beyond ``search_radius`` on either axis are zero."""
+    """Raw phase-correlation surface ``[..., N, N]`` (steps 1-3): the inverse
+    DFT output as it is, zero shift at ``(0, 0)``, neither shifted nor
+    masked.  Kernel B (``cuda_kernels.peak_refine_raw``) reads it directly.
+
+    ``backend="dft"`` runs the transforms as float32 ``torch.matmul``: on a
+    CUDA device that is full float32 only while TF32 matmuls are off
+    (PyTorch's default, which ``chip_smoke.py`` asserts)."""
     n = curr.shape[-1]
     if curr.shape[-2] != n:
         raise ValueError(f"patches must be square, got {curr.shape[-2]}x{n}")
@@ -97,21 +103,38 @@ def correlation_surface(
     if backend == "fft":
         r = torch.fft.rfft2(curr) * torch.conj(torch.fft.rfft2(prev))
         r = r * torch.rsqrt(r.real * r.real + r.imag * r.imag + FLT_EPSILON)
-        surf = torch.fft.irfft2(r, s=(n, n))
-    elif backend == "dft":
+        return torch.fft.irfft2(r, s=(n, n))
+    if backend == "dft":
         f1r, f1i = _dft2_real(curr)
         f2r, f2i = _dft2_real(prev)
         rr = f1r * f2r + f1i * f2i  # F1 * conj(F2)
         ri = f1i * f2r - f1r * f2i
         denom = torch.rsqrt(rr * rr + ri * ri + FLT_EPSILON)
-        surf = _idft2_real_output(rr * denom, ri * denom)
-    else:
-        raise ValueError(f"unknown backend {backend!r} (expected 'fft' or 'dft')")
+        return _idft2_real_output(rr * denom, ri * denom)
+    raise ValueError(f"unknown backend {backend!r} (expected 'fft' or 'dft')")
 
-    surf = torch.fft.fftshift(surf, dim=(-2, -1))
+
+def shift_and_mask(raw: torch.Tensor, search_radius: int) -> torch.Tensor:
+    """Step 4 on a raw surface: fftshift, then zero every entry beyond
+    ``search_radius`` from the centre ``(N//2, N//2)`` on either axis."""
+    n = raw.shape[-1]
+    surf = torch.fft.fftshift(raw, dim=(-2, -1))
     idx = (torch.arange(n, device=surf.device) - n // 2).abs() <= search_radius
     mask = idx[:, None] & idx[None, :]
     return torch.where(mask, surf, torch.zeros((), dtype=surf.dtype, device=surf.device))
+
+
+def correlation_surface(
+    curr: torch.Tensor,
+    prev: torch.Tensor,
+    *,
+    search_radius: int = DEFAULT_SEARCH_RADIUS,
+    backend: str = "fft",
+) -> torch.Tensor:
+    """fftshifted, radius-masked phase-correlation surface ``[..., N, N]``
+    (steps 1-4): the zero-shift response sits at ``(N//2, N//2)`` and entries
+    beyond ``search_radius`` on either axis are zero."""
+    return shift_and_mask(correlation_surface_raw(curr, prev, backend=backend), search_radius)
 
 
 def peak_refine(
@@ -151,9 +174,17 @@ def phase_correlate_field(
     search_radius: int = DEFAULT_SEARCH_RADIUS,
     centroid_radius: int = DEFAULT_CENTROID_RADIUS,
     backend: str = "fft",
+    use_pallas: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched phase correlation of ``[..., N, N]`` patch pairs ->
-    ``(shift [..., 2], maxval [...])``.  The JAX function's ``use_pallas``
-    route (the fused peak kernel B) is not ported yet (ROADMAP, queue 2 B)."""
+    ``(shift [..., 2], maxval [...])``.  ``use_pallas`` (the JAX function's
+    name for the reference's ``useOCL``) routes the peak stage through
+    kernel B, which reads the raw surface; otherwise the surface is shifted,
+    masked and refined here."""
+    if use_pallas:
+        from mrs_optic_flow_tpu_torch.ops.cuda_kernels import peak_refine_raw
+
+        raw = correlation_surface_raw(curr, prev, backend=backend)
+        return peak_refine_raw(raw, search_radius=search_radius, centroid_radius=centroid_radius)
     surf = correlation_surface(curr, prev, search_radius=search_radius, backend=backend)
     return peak_refine(surf, centroid_radius=centroid_radius)

@@ -1,4 +1,4 @@
-"""OpticFlowNode — the short-range node path in PyTorch.
+"""OpticFlowNode — the node's short-range paths in PyTorch.
 
 Port of :class:`mrs_optic_flow_tpu.runtime.node.OpticFlowNode`, the
 transport-agnostic rebuild of the ROS nodelet ``mrs_optic_flow/OpticFlow``
@@ -7,16 +7,18 @@ the per-frame chain raw camera frame -> body-frame twist, diagnostics,
 warm-up, checkpoints and health.  Published messages go through a pluggable
 ``publish(topic, msg)`` callable.
 
-Each frame runs one eager function on the node's device (:meth:`_frame_step`):
-preprocess -> ``FftMethod.step`` (the hand-written phase-correlation kernel
-on a CUDA device) -> ``get_rt`` -> detilt and body rotation.  The frame and
-one packed parameter vector go up, and one ``summary`` tensor comes back:
-one readback per frame, as in the JAX node.
+Each frame runs one eager function on the node's device.  With method 4
+(:meth:`_frame_step`): preprocess -> ``FftMethod.step`` (kernel A on a CUDA
+device) -> ``get_rt`` -> detilt and body rotation.  With the block-matching
+methods 3 and 5 (:meth:`_frame_step_simple`): preprocess -> the SAD engine
+(kernel C) -> per-cell velocities -> consensus by ``filter_method`` -> body
+rotation.  With ``scale_rotation`` the log-polar estimator (kernel B) runs
+in the same function on the same gray frame.  The frame and one packed
+parameter vector go up, and one ``summary`` tensor comes back: one readback
+per frame, as in the JAX node.
 
-Only the default configuration's path is ported.  The constructor raises
-``NotImplementedError`` for long-range mode, scale/rotation, the
-block-matching methods, host preprocessing, the GUI and video recording;
-ROADMAP.md lists them.
+The constructor raises ``NotImplementedError`` for long-range mode, host
+preprocessing, the GUI and video recording; ROADMAP.md lists them.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from mrs_optic_flow_tpu.utils.quat_np import (
 )
 from mrs_optic_flow_tpu_torch.config import NodeConfig
 from mrs_optic_flow_tpu_torch.convert import node_state_from_numpy
+from mrs_optic_flow_tpu_torch.filters.allsac import allsac_mean, point_mean, ransac_mean
 from mrs_optic_flow_tpu_torch.filters.stats import SpeedBox, analyze_speeds
 from mrs_optic_flow_tpu_torch.geometry.motion import get_rt
 from mrs_optic_flow_tpu_torch.geometry.rotations import (
@@ -45,7 +48,13 @@ from mrs_optic_flow_tpu_torch.geometry.rotations import (
     quat_rotate,
     rpy_from_matrix,
 )
-from mrs_optic_flow_tpu_torch.models import make_engine
+from mrs_optic_flow_tpu_torch.models import (
+    FftMethod,
+    ScaleRotationConfig,
+    ScaleRotationEstimator,
+    make_engine,
+)
+from mrs_optic_flow_tpu_torch.models.scale_rotation import ScaleRotState
 from mrs_optic_flow_tpu_torch.ops.preprocess import center_crop, resize_by, to_grayscale
 from mrs_optic_flow_tpu_torch.runtime.msgs import (
     CameraInfo,
@@ -62,10 +71,8 @@ from mrs_optic_flow_tpu_torch.runtime.profiler import Profiler, ThrottledLog
 def _check_supported(c: NodeConfig) -> None:
     """Reject configurations outside the ported path, naming the ROADMAP item."""
     unsupported = [
-        (c.method != 4, f"method {c.method}", "queue 1 item 10"),
         (c.long_range_mode != "always_off", f"long_range_mode {c.long_range_mode!r}",
          "queue 1 item 7"),
-        (c.scale_rotation, "scale_rotation", "queue 1 item 9"),
         (c.host_preprocess, "host_preprocess", "queue 1 item 6"),
         (c.gui or c.store_video, "gui / store_video", "queue 1 item 6"),
     ]
@@ -88,7 +95,7 @@ class OpticFlowNode:
         transform_provider: Optional[Callable[[], object]] = None,
     ):
         """``device``: where the frame chain runs (``"cuda"`` launches the
-        hand-written kernel).  ``transform_provider``: optional zero-argument
+        hand-written kernels).  ``transform_provider``: optional zero-argument
         callable returning the camera->base quaternion ``[x, y, z, w]``, a
         ``(c2b_quat, cam_yaw)`` tuple, or ``None``; polled at most once per
         second from the image path until it succeeds (the reference's 1 Hz
@@ -104,13 +111,39 @@ class OpticFlowNode:
         self.uav_untilted_frame = uav_untilted_frame
         self.profiler = Profiler("OpticFlow", enable_profiler)
 
-        self.engine = make_engine(
-            4, device=self.device,
-            frame_size=c.frame_size, sample_point_size=c.sample_point_size,
-            max_pixel_speed=c.max_pixel_speed, use_pallas=c.use_pallas,
-            backend=c.backend, quantize_8bit=c.quantize_8bit,
-        )
+        engine_kwargs = dict(frame_size=c.frame_size, sample_point_size=c.sample_point_size)
+        if c.method == 4:
+            self.engine = make_engine(
+                4, device=self.device, **engine_kwargs,
+                max_pixel_speed=c.max_pixel_speed, use_pallas=c.use_pallas,
+                backend=c.backend, quantize_8bit=c.quantize_8bit,
+            )
+        else:
+            # the SAD engines follow use_pallas only when the YAML set it
+            if c.use_pallas_explicit:
+                engine_kwargs["use_pallas"] = c.use_pallas
+            self.engine = make_engine(
+                c.method, device=self.device, **engine_kwargs,
+                scan_radius=c.scan_radius, step_size=c.step_size,
+            )
         self.flow_state = self.engine.init_state()
+
+        self.scale_rotation_estimator: Optional[ScaleRotationEstimator] = None
+        self.scale_rot_state = None
+        if c.scale_rotation:
+            # the estimator shares the flow engine's use_pallas, backend and
+            # quantize_8bit, as in the JAX node
+            self.scale_rotation_estimator = ScaleRotationEstimator(
+                ScaleRotationConfig(
+                    resolution=c.frame_size, magnitude=c.scale_rot_magnitude,
+                    interp=c.scale_rot_interp,
+                    lp_resolution=c.scale_rot_lp_resolution or None,
+                    backend=c.backend, use_pallas=c.use_pallas,
+                    quantize_8bit=c.quantize_8bit,
+                ),
+                device=self.device,
+            )
+            self.scale_rot_state = self.scale_rotation_estimator.init_state()
 
         # sensor fusion state (src/optic_flow.cpp:160-330)
         self.got_camera_info = False
@@ -332,31 +365,45 @@ class OpticFlowNode:
             except Exception:  # noqa: BLE001 — a raising transport must not mask the result
                 pass
 
-    def _frame_step(self, img: torch.Tensor, params: torch.Tensor, channels: int, cx_eff: int):
-        """The per-frame device chain: preprocess -> engine step -> getRT ->
-        detilt and body-frame rotation.  ``params`` packs ``[height, dt,
-        K (9), dist (5), c2b (4), rate_quat (4), detilt (4)]``.  Returns the
-        new flow state and the ``summary`` vector ``[ok, tran_b (3), ang (3),
-        n_inliers, ang_diff_rejected]``, followed by the raw shifts when
-        ``raw_output`` is set."""
+    def _gray(self, img: torch.Tensor, channels: int, cx_eff: int) -> torch.Tensor:
+        """Preprocess: grayscale, optional resize and the centre crop, or
+        the frame as it is when it already is the cropped gray window."""
         c = self.config
         h, w = img.shape[0], img.shape[1]
         if channels == 1 and (h, w) == (c.frame_size, c.frame_size):
-            gray = img.to(torch.float32)  # already the cropped gray window
-        else:
-            g = to_grayscale(img) if channels == 3 else img.to(torch.float32)
-            if abs(c.scale_factor - 1.0) > 0.01:
-                g = resize_by(g, c.scale_factor)
-            gray = center_crop(g, c.frame_size, cx_eff)
+            return img.to(torch.float32)
+        g = to_grayscale(img) if channels == 3 else img.to(torch.float32)
+        if abs(c.scale_factor - 1.0) > 0.01:
+            g = resize_by(g, c.scale_factor)
+        return center_crop(g, c.frame_size, cx_eff)
 
+    def _sr_step(self, gray: torch.Tensor):
+        """Step the scale/rotation estimator on the frame's gray window:
+        ``(new state, summary slots [scale, rot])``, or ``(None, [])``
+        without an estimator."""
+        sr = self.scale_rotation_estimator
+        if sr is None:
+            return None, []
+        state, res = sr.step(self.scale_rot_state, gray)
+        return state, [res.scale.reshape(1), res.rotation.reshape(1)]
+
+    def _frame_step(self, gray: torch.Tensor, params: torch.Tensor, cx_eff: int):
+        """The method-4 device chain on the gray window: engine step ->
+        getRT -> detilt and body-frame rotation.  ``params`` packs
+        ``[height, dt, K (9), dist (5), c2b (4), rate_quat (4), detilt (4)]``.
+        Returns the new flow and scale/rotation states and the ``summary``
+        vector ``[ok, tran_b (3), ang (3), n_inliers, ang_diff_rejected]``,
+        then ``[scale, rot]`` with scale/rotation, then the raw shifts with
+        ``raw_output``."""
+        c = self.config
         height, dt = params[0], params[1]
         cam = params[2:11].reshape(3, 3)
         dist, c2b, rate_quat, detilt = params[11:16], params[16:20], params[20:24], params[24:28]
 
-        new_state, flow = self.engine.step(self.flow_state, gray)
+        flow_state, flow = self.engine.step(self.flow_state, gray)
         res = get_rt(
-            flow.shifts, height, dt, float(cx_eff - c.frame_size // 2), cam, dist, c2b, rate_quat,
-            frame_size=c.frame_size, patch=c.sample_point_size, generator=self._gen,
+            flow.shifts, height, dt, float(cx_eff - c.frame_size // 2), cam, dist, c2b,
+            rate_quat, frame_size=c.frame_size, patch=c.sample_point_size, generator=self._gen,
             shifted_pts_thr=c.shifted_pts_thr,
         )
         # detilt * (C2B * tran) (src/optic_flow.cpp:1694); the rotation axis
@@ -365,16 +412,55 @@ class OpticFlowNode:
         axis, angle = quat_axis_angle(res.rot)
         rot_b = quat_from_axis_angle(quat_rotate(c2b, axis), angle)
         ang = torch.stack(rpy_from_matrix(matrix_from_quat(rot_b)))
+        sr_state, sr_parts = self._sr_step(gray)
         parts = [
             res.ok.to(torch.float32)[None],
             tran_b,
             ang,
             res.n_inliers.to(torch.float32)[None],
             res.ang_diff_rejected.to(torch.float32)[None],
+            *sr_parts,
         ]
         if c.raw_output:
             parts.append(flow.shifts_raw.reshape(-1))
-        return new_state, torch.cat(parts)
+        return flow_state, sr_state, torch.cat(parts)
+
+    def _frame_step_simple(self, gray: torch.Tensor, params: torch.Tensor):
+        """The methods-3/5 device chain (the JAX node's
+        ``_frame_program_simple``): SAD engine step -> per-cell metric
+        velocities ``v = -d * h / f / dt`` -> consensus by ``filter_method``
+        (allsac, ransac or average, ``src/utilityFunctions.cpp:58-216``) ->
+        body-frame rotation.  Same ``params`` as :meth:`_frame_step`.
+        Returns the new states and the summary ``[ok, tran_b (3)]``, then
+        ``[scale, rot]`` with scale/rotation, then the per-cell shifts with
+        ``raw_output``."""
+        c = self.config
+        height, dt = params[0], params[1]
+        cam = params[2:11].reshape(3, 3)
+        c2b = params[16:20]
+
+        flow_state, flow = self.engine.step(self.flow_state, gray)
+        cells = flow.shifts_raw.reshape(-1, 2)
+        vels = -cells * torch.stack([height / cam[0, 0], height / cam[1, 1]]) / dt
+        valid = torch.isfinite(vels).all(dim=-1)
+        vels = torch.where(valid[:, None], vels, torch.zeros((), device=vels.device))
+        thr_sq = c.ransac_threshold_rad ** 2
+        if c.filter_method == "allsac":
+            vec, _ = allsac_mean(vels, valid, thr_sq)
+        elif c.filter_method == "ransac":
+            vec = ransac_mean(
+                vels, valid, thr_sq, num_of_chosen=c.ransac_num_of_chosen,
+                num_of_iterations=c.ransac_num_of_iter, generator=self._gen,
+            )
+        else:  # "average"
+            vec = point_mean(vels, valid)
+        ok = valid.any() & torch.isfinite(vec).all()
+        tran_b = quat_rotate(c2b, torch.cat([vec, torch.zeros(1, dtype=vec.dtype, device=vec.device)]))
+        sr_state, sr_parts = self._sr_step(gray)
+        parts = [ok.to(torch.float32)[None], tran_b, *sr_parts]
+        if c.raw_output:
+            parts.append(cells.reshape(-1))
+        return flow_state, sr_state, torch.cat(parts)
 
     def _process_image(self, msg: ImageMsg) -> Optional[TwistWithCovarianceStamped]:
         if self.first_image:
@@ -415,19 +501,28 @@ class OpticFlowNode:
             [height, self.dt], np.ravel(cam_eff), np.ravel(self.dist_coeffs)[:5],
             self.c2b_quat, self.angular_rate_quat, detilt,
         ]).astype(np.float32)
-        with self._mutex, self.profiler.routine("frame_program"):
-            self.flow_state, summary_dev = self._frame_step(
-                torch.from_numpy(img).to(self.device),
-                torch.from_numpy(params).to(self.device),
-                channels, cx_eff,
-            )
-        # ONE readback: [ok, tran_b(3), ang(3), n_inliers, ang_diff_rejected
-        # (, raw shifts)]
+        simple = not isinstance(self.engine, FftMethod)
+        with self._mutex, self.profiler.routine("frame_program_simple" if simple else "frame_program"):
+            gray = self._gray(torch.from_numpy(img).to(self.device), channels, cx_eff)
+            params_dev = torch.from_numpy(params).to(self.device)
+            if simple:
+                states = self._frame_step_simple(gray, params_dev)
+            else:
+                states = self._frame_step(gray, params_dev, cx_eff)
+            self.flow_state, self.scale_rot_state, summary_dev = states
+        # ONE readback: [ok, tran_b (3)(, ang (3), n_inliers,
+        # ang_diff_rejected)(, scale, rot)(, raw shifts)]
         summary = summary_dev.cpu().numpy()
+        k = 4 if simple else 9
+        if self.scale_rotation_estimator is not None:
+            # published regardless of the flow gate: the estimators are
+            # independent (src/optic_flow.cpp:1629-1650)
+            self._publish_scale_rotation(msg.stamp, float(summary[k]), float(summary[k + 1]), height)
+            k += 2
         if c.raw_output:
-            self.publish("points_raw_out", summary[9:].reshape(-1, 2))
+            self.publish("points_raw_out", summary[k:].reshape(-1, 2))
         if not bool(summary[0] > 0.5):
-            if bool(summary[8] > 0.5):
+            if not simple and bool(summary[8] > 0.5):
                 # src/optic_flow.cpp:682-684 (throttled, 1 Hz)
                 self.log_throttled(
                     "angdiff", "[OpticFlow]: Angle difference greater than pi/4, skipping."
@@ -435,6 +530,25 @@ class OpticFlowNode:
             self._note_result(False)
             return None
         tran_b = summary[1:4]
+        fx = float(cam_eff[0, 0])
+        if simple:
+            # methods 3/5: a planar velocity in the body frame, no vertical
+            # or angular estimate
+            if not np.all(np.isfinite(tran_b[:2])):
+                self._note_result(False)
+                return None
+            twist = TwistWithCovarianceStamped.make(
+                frame_id=self.uav_frame,
+                stamp=msg.stamp,
+                linear=(float(tran_b[0]), float(tran_b[1]), float("nan")),
+                angular=(float("nan"),) * 3,
+                cov_xy=(50.0 * height / fx) ** 2,
+            )
+            self.publish("velocity_out", twist)
+            self._note_result(True)
+            self._frames_processed += 1
+            return twist
+
         ang = [float(a) for a in summary[4:7]]
         n_inliers = int(summary[7])
         if not np.all(np.isfinite(tran_b)):
@@ -444,7 +558,6 @@ class OpticFlowNode:
         if np.linalg.norm(tran_b) > 7.0:
             self.log(f"[OpticFlow]: LARGE SPEED: {tran_b}")
 
-        fx = float(cam_eff[0, 0])
         twist = TwistWithCovarianceStamped.make(
             frame_id=frame_id,
             stamp=msg.stamp,
@@ -457,6 +570,33 @@ class OpticFlowNode:
         self._note_result(True)
         self._frames_processed += 1
         return twist
+
+    def _publish_scale_rotation(self, stamp, scale: float, rotation: float, height: float):
+        """``scale_rotation_out``: the frame's scale and rotation, the yaw
+        rate, and the vertical speed from the scale change (``velocity``
+        mode; ``altitude`` mode is the reference's disabled stub and emits
+        0).  The reference's wiring is commented out
+        (``src/optic_flow.cpp:1629-1650``); the JAX node's is live.
+
+        Tilt gate (deviation 23): the log-polar decode assumes a centred
+        zoom and rotation, so beyond ``scale_rot_max_tilt`` or
+        ``scale_rot_max_tilt_rate`` the decode is published as NaN; the
+        message still goes out every frame."""
+        c = self.config
+        tilt = float(np.hypot(self.imu_roll, self.imu_pitch))
+        tilt_rate = float(np.hypot(self.imu_roll_rate, self.imu_pitch_rate))
+        if tilt > c.scale_rot_max_tilt or tilt_rate > c.scale_rot_max_tilt_rate:
+            scale, rotation = float("nan"), float("nan")
+        rot_rate = rotation / self.dt if self.dt > 0 else float("nan")
+        if c.scale_rot_output == "velocity":
+            vz = (scale - 1.0) / self.dt * height if self.dt > 0 else float("nan")
+        else:
+            vz = 0.0
+        self.publish(
+            "scale_rotation_out",
+            {"stamp": stamp, "scale": scale, "vz": vz, "yaw_rate": rot_rate,
+             "frame_id": self.uav_frame},
+        )
 
     def _publish_diagnostics(self, stamp, v_xy, height, fx, n_inliers):
         """Diagnostics the reference advertises but never publishes
@@ -481,10 +621,10 @@ class OpticFlowNode:
 
     def warmup(self, image_shape=None) -> float:
         """Run one synthetic frame pair per input geometry through the whole
-        chain (builds the kernel library on a CUDA device) without touching
-        the live stream: state, diagnostics history, health counters and the
-        RANSAC generator are restored.  Requires camera info.  Returns the
-        wall time spent."""
+        chain (builds the kernel libraries on a CUDA device) without touching
+        the live stream: the flow and scale/rotation carries, diagnostics
+        history, health counters and the random generator are restored.
+        Requires camera info.  Returns the wall time spent."""
         if not self.got_camera_info:
             raise RuntimeError("warmup needs camera info (on_camera_info first)")
         t0 = time.perf_counter()
@@ -495,7 +635,7 @@ class OpticFlowNode:
             else [(480, 752, 3), (c.frame_size, c.frame_size)]
         )
         saved = (
-            self.flow_state, self.first_image, self._begin, self.dt,
+            self.flow_state, self.scale_rot_state, self.first_image, self._begin, self.dt,
             self.got_height, self.got_odometry, self.got_imu, self.got_tfs,
             self.uav_height, list(self._speed_history), self._frames_processed,
             self._consecutive_failures, self._gen.get_state(),
@@ -513,7 +653,7 @@ class OpticFlowNode:
         finally:
             self.publish = pub
             (
-                self.flow_state, self.first_image, self._begin, self.dt,
+                self.flow_state, self.scale_rot_state, self.first_image, self._begin, self.dt,
                 self.got_height, self.got_odometry, self.got_imu, self.got_tfs,
                 self.uav_height, self._speed_history, self._frames_processed,
                 self._consecutive_failures, gen_state,
@@ -528,7 +668,7 @@ class OpticFlowNode:
     def save_state(self, path: str):
         """Checkpoint the streaming state in the JAX node's ``.npz`` format
         (``runtime/node.py:1036-1075`` of the JAX package), which that node
-        can load too."""
+        can load too, the scale/rotation carry included."""
         if not path.endswith(".npz"):
             path += ".npz"
         np.savez(
@@ -545,18 +685,29 @@ class OpticFlowNode:
             dist_coeffs=self.dist_coeffs if self.dist_coeffs is not None else np.zeros(0),
             got_height=np.asarray(self.got_height),
             got_tfs=np.asarray(self.got_tfs),
+            sr_lp=(
+                self.scale_rot_state.prev_logpolar.cpu().numpy()
+                if self.scale_rot_state is not None else np.zeros(0)
+            ),
+            sr_first=np.asarray(
+                self.scale_rot_state.first if self.scale_rot_state is not None else True
+            ),
         )
 
     def load_state(self, path: str):
-        """Resume from a checkpoint written by either node.  A flow carry of
-        another frame geometry raises ``ValueError``; one of the other dtype
-        is converted."""
+        """Resume from a checkpoint written by either node.  A flow or
+        log-polar carry of another geometry raises ``ValueError``; one of the
+        other dtype is converted."""
         if not path.endswith(".npz"):
             path += ".npz"
         proto = self.engine.init_state().prev
+        sr = self.scale_rotation_estimator
+        sr_proto = sr.init_state().prev_logpolar if sr is not None else None
         with np.load(path) as z:
             st = node_state_from_numpy(
-                z, self.device, carry_shape=tuple(proto.shape), carry_dtype=proto.dtype
+                z, self.device, carry_shape=tuple(proto.shape), carry_dtype=proto.dtype,
+                sr_shape=tuple(sr_proto.shape) if sr is not None else None,
+                sr_dtype=sr_proto.dtype if sr is not None else None,
             )
         self.flow_state = st.flow_state
         self._begin = st.begin
@@ -572,6 +723,8 @@ class OpticFlowNode:
         if st.got_height is not None:
             self.got_height = st.got_height
             self.got_tfs = st.got_tfs
+        if st.sr_lp is not None:
+            self.scale_rot_state = ScaleRotState(prev_logpolar=st.sr_lp, first=st.sr_first)
 
     @property
     def health(self) -> dict:

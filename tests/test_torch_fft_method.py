@@ -1,7 +1,10 @@
 """Parity of the port's FftMethod engine with the JAX engine on the CPU
 (frame 256, patch 64): the single-frame stream with its first-frame copy and
-uint8 carry, and the batched mode.  The JAX engine runs its Pallas kernel in
-interpret mode; the port runs the kernel's plain twin."""
+uint8 carry, and the batched mode, on every route: kernel A
+(``use_pallas=True, backend="dft"``), the raw surface and kernel B
+(``backend="fft"``), and the plain path (``use_pallas=False``).  The JAX
+engine runs its Pallas kernels in interpret mode; the port runs the kernels'
+plain twins."""
 
 import dataclasses
 
@@ -71,6 +74,25 @@ def test_step_batch_matches_jax():
     np.testing.assert_allclose(to_numpy(tres.response), to_numpy(jres.response), rtol=1e-4)
 
 
+@pytest.mark.parametrize("backend,use_pallas", [("fft", True), ("fft", False), ("dft", False)])
+def test_other_routes_match_jax(backend, use_pallas):
+    frames = _stream(seed=2)
+    kw = dict(frame_size=256, sample_point_size=64, max_pixel_speed=MAX_SPEED, backend=backend,
+              use_pallas=use_pallas)
+    jeng, teng = JaxFftMethod(JaxConfig(**kw)), FftMethod(FftMethodConfig(**kw))
+    jst, tst = jeng.init_state(), teng.init_state()
+    for frame in frames:
+        jst, jres = jeng.step(jst, jnp.asarray(frame))
+        tst, tres = teng.step(tst, torch.from_numpy(frame))
+        _assert_gated_equal(to_numpy(tres.shifts), to_numpy(jres.shifts))
+        np.testing.assert_allclose(to_numpy(tres.response), to_numpy(jres.response), rtol=1e-4)
+    prev, curr = np.stack(frames[:3]), np.stack(frames[1:])
+    jres = jeng.step_batch(jnp.asarray(prev), jnp.asarray(curr))
+    tres = teng.step_batch(torch.from_numpy(prev), torch.from_numpy(curr))
+    assert tuple(tres.shifts.shape) == (3, 16, 2)
+    _assert_gated_equal(to_numpy(tres.shifts), to_numpy(jres.shifts))
+
+
 def test_set_im_prev_and_init_state():
     eng = FftMethod(FftMethodConfig(frame_size=128, sample_point_size=64))
     st = eng.init_state()
@@ -104,10 +126,6 @@ def test_tpu_knobs_accepted_and_ignored():
 
 
 def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FftMethod(FftMethodConfig(use_pallas=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FftMethod(FftMethodConfig(backend="fft"))
     with pytest.raises(ValueError, match="backend"):
         FftMethod(FftMethodConfig(backend="nope"))
     eng = FftMethod()
@@ -116,8 +134,5 @@ def test_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.step_batch_long_range(torch.zeros((1, 480, 480)), torch.zeros((1, 480, 480)))
     assert isinstance(make_engine(4, frame_size=128, sample_point_size=64), FftMethod)
-    for method in (3, 5):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_engine(method)
     with pytest.raises(ValueError, match="invalid method"):
         make_engine(7)

@@ -139,9 +139,8 @@ def test_checkpoint_round_trip_and_geometry_check(tmp_path):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("method", 3), ("long_range_mode", "height_based"), ("scale_rotation", True),
-     ("host_preprocess", True), ("gui", True), ("store_video", True),
-     ("use_pallas", False), ("backend", "fft")],
+    [("long_range_mode", "height_based"), ("host_preprocess", True), ("gui", True),
+     ("store_video", True)],
 )
 def test_unsupported_configs_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
