@@ -6,9 +6,12 @@
 Phases, each printing a line when it finishes:
 
 1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compiles the hand-written kernels A, B and C from
+2. build: compiles the hand-written kernels A to E from
    ``mrs_optic_flow_tpu_torch/csrc/`` into ``build/torch_kernels/``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together, and checks the engines' route
+   constant (kernel A's largest patch) and kernel C's tile (two blocks an
+   SM) against the libraries' shared-memory formulas and the device's
+   limits;
 3. kernel A against its plain twin and the NumPy oracle (``tests/oracle.py``)
    on the shared accuracy pairs (480 px frames, 120 px patches, uint8), plus
    the edge cases: zero frames, identical frames, a NaN pixel, float32
@@ -34,13 +37,35 @@ Phases, each printing a line when it finishes:
    through kernel B;
 9. the node with methods 3 and 5 (480 / 120 / R 21 / step 24) on phase 5's
    texture: every twist after the first within 0.10 m/s of the truth, every
-   frame through kernel C.
+   frame through kernel C;
+10. kernel D against its twin and the NumPy oracle at n = 60 (P = 64), 45,
+    90, 100, 160 (P = 9), 240 (P = 4) and 480 (P = 1 and 16); uint8 and
+    float32 bit-identical; zero patches, a NaN pixel, a one-sided zero pair
+    (a surface of ties) and a shift beyond the search radius at n = 480;
+    ``FftMethod`` at 480 px with patches 160, 240 and 100 (one 480 px
+    window) through kernel D against the engine on the CPU; timed at n = 60
+    (P = 64) and n = 480 (P = 1) beside the twin;
+11. kernel E against its twin on ``[16, 120, 120]``, a NaN and a masked
+    case, then ``conformance.check`` of the five backends on the card (all
+    10 pairs within 0.05 px); both timed;
+12. long-range nodes: ``long_range_mode: height_based`` with
+    ``takeoff_height`` 1.0 m on 20 frames whose heights cross 1.0 m both
+    ways, the render's pixel shift following each frame's height; (a) at
+    480 / 120 (kernel A in both modes) with ``scale_rotation: true`` (one
+    kernel B launch and one decode a frame in both modes, each the
+    estimator's own on the node's gray window), (b) with ``sample_point_size`` 60 (kernel D in both modes:
+    64 windows, and 2x2 long-range windows of 60); long-range twists within
+    0.25 m/s of the truth, short-range ones within 0.15 m/s, every frame
+    through the named kernel;
+13. kernel C at S = 160 and 240 (R = 21), the blocks of repair F3:
+    bit-identical to its twin on integer inputs and on a repeated run.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
 one JSON object describing each kernel: its launches in its node phase
-(kernel C: methods 3 and 5 together), its largest difference from its twin,
-and its time and the twin's at the node's shape.  The last line is
+(kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
+conformance check of phase 11), its largest difference from its twin, and
+its time and the twin's at the node's shape.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
 repository beside it, it fails.
@@ -65,6 +90,10 @@ KERNELS = {
                         "mrs_optic_flow_tpu/ops/pallas_kernels.py:142"),
     "sad_search": ("mrs_optic_flow_tpu_torch/csrc/sad_search.cu",
                    "mrs_optic_flow_tpu/ops/block_matching.py:66"),
+    "phase_correlate_fullfused": ("mrs_optic_flow_tpu_torch/csrc/phase_correlate_fullfused.cu",
+                                  "mrs_optic_flow_tpu/ops/pallas_kernels.py:849"),
+    "phase_correlate_fused": ("mrs_optic_flow_tpu_torch/csrc/phase_correlate_fused.cu",
+                              "mrs_optic_flow_tpu/ops/pallas_kernels.py:916"),
 }
 
 SHIFT_TOL = 0.01  # px, kernel against twin and oracle (hard budget 0.1, BASELINE.md)
@@ -80,6 +109,10 @@ SR_STEP_DEG, SR_STEP_ZOOM = 2.0, 1.02  # per frame, phase 8
 SR_ROT_TOL, SR_SCALE_TOL = 1.0, 0.03  # deg and scale, tests/test_logpolar.py:408-444
 SR_TWIN_TOL = 1e-4  # kernel and twin decodes
 BM_TWIST_TOL = 0.10  # m/s: about 1 px of flow per frame at fx 420, h 2 m, dt 0.05 s
+LR_TWIST_TOL = 0.25  # m/s, the long-range budget of tests/test_node.py
+#: phase 12's heights: short range above 1.0 m, long range below, both ways
+LR_HEIGHTS = [1.5] * 6 + [0.8] * 7 + [1.4] * 7
+CONFORMANCE_TOL = 0.05  # px, ops/conformance.py
 
 
 def say(msg: str) -> None:
@@ -339,18 +372,24 @@ def check_sad_kernel(dev) -> tuple:
     return float((k - t).abs().max()), ms, plain_ms
 
 
-def render_frames(n_frames: int, seed: int = 0) -> list:
+def render_frames(n_frames: int, seed: int = 0, heights=None) -> list:
     """BGR uint8 752x480 frames of a nadir camera over a band-limited periodic
     texture, one texture pixel per image pixel, moving at ``V_TRUE``: pixel
-    flow per frame ``d = -f * v * dt / h`` (``runtime/stream.py:75-81``),
-    rendered as an exact Fourier shift."""
+    flow per frame ``d = -f * v * dt / h`` (``runtime/stream.py:75-81``) at
+    ``HEIGHT`` or, from frame i - 1 to frame i, at ``heights[i]``, rendered
+    as an exact Fourier shift."""
     from oracle import fourier_shift, smooth_random_image
 
     tex = smooth_random_image(np.random.default_rng(seed), 1024, cutoff=0.25)
     d = (-FX * V_TRUE[0] * DT / HEIGHT, -FY * V_TRUE[1] * DT / HEIGHT)
+    pos = np.zeros(2)
     frames = []
     for i in range(n_frames):
-        gray = fourier_shift(tex, d[0] * i, d[1] * i)[:480, :752]
+        if heights is None:
+            pos = (d[0] * i, d[1] * i)
+        elif i:
+            pos = pos - np.array([FX * V_TRUE[0], FY * V_TRUE[1]]) * DT / heights[i]
+        gray = fourier_shift(tex, pos[0], pos[1])[:480, :752]
         g8 = np.clip(np.rint(gray), 0, 255).astype(np.uint8)
         frames.append(np.repeat(g8[..., None], 3, axis=-1))
     return frames
@@ -363,9 +402,10 @@ def kernel_wrappers() -> dict:
     return {name: getattr(cuda_kernels, name) for name in KERNELS}
 
 
-def drive_node(dev, config, frames, label: str):
+def drive_node(dev, config, frames, label: str, heights=None):
     """Warm a node up, then drive it with ``frames`` (BGR 752x480 uint8) at
-    ``DT``, level, at ``HEIGHT``, with odometry at ``V_TRUE``.  Every
+    ``DT``, level, at ``HEIGHT`` (or frame i at ``heights[i]``), with
+    odometry at ``V_TRUE``.  Every
     kernel's launch count is set to 0 just before the frames and read just
     after.  Returns (node, published messages, launches per kernel,
     per-frame latency in ms of the processed frames)."""
@@ -389,7 +429,7 @@ def drive_node(dev, config, frames, label: str):
                         orientation=(0.0, 0.0, 0.0, 1.0)))
         node.on_odometry(Odometry(stamp=t, orientation=(0.0, 0.0, 0.0, 1.0),
                                   linear_velocity=(V_TRUE[0], V_TRUE[1], 0.0)))
-        node.on_height(Float64Stamped(stamp=t, value=HEIGHT))
+        node.on_height(Float64Stamped(stamp=t, value=HEIGHT if heights is None else heights[i]))
         node.on_image(ImageMsg(stamp=t, data=frame))
     launches = {name: fn.LAUNCHES for name, fn in wrappers.items()}
 
@@ -491,6 +531,317 @@ def run_block_matching_nodes(dev) -> int:
     return total
 
 
+def patch_pairs(n: int, pairs: int, seed: int):
+    """uint8 ``[P, n, n]`` patch pairs cut from ``pairs`` frame pairs of side
+    ``q * n`` (q = 480 // n, at least 1) with sub-pixel shifts up to
+    ``n / 6`` px (25 px at most), and the oracle's shift of each patch."""
+    from oracle import make_accuracy_pairs
+
+    q = max(480 // n, 1)
+    prev, curr, _, oracle = make_accuracy_pairs(
+        np.random.default_rng(seed), pairs, size=q * n, patch=n, max_shift=min(25.0, n / 6))
+
+    def cut(frames):
+        b = frames.shape[0]
+        return np.ascontiguousarray(
+            frames.reshape(b, q, n, q, n).transpose(0, 1, 3, 2, 4).reshape(b * q * q, n, n))
+
+    return cut(curr), cut(prev), oracle.reshape(-1, 2)
+
+
+def compare_pc(kernel, twin, curr, prev, label: str, oracle=None, **kw) -> float:
+    """A phase-correlation kernel against its twin (and the oracle when
+    given) on one batch: the same NaN pattern, shifts within SHIFT_TOL,
+    maxval within MAXVAL_RTOL of the largest.  Returns the largest shift
+    difference from the twin."""
+    ks, km = (x.cpu().numpy() for x in kernel(curr, prev, **kw))
+    ts, tm = (x.cpu().numpy() for x in twin(curr, prev, **kw))
+    check(np.array_equal(np.isnan(ks), np.isnan(ts)), f"{label}: NaN shift pattern differs")
+    check(np.array_equal(np.isnan(km), np.isnan(tm)), f"{label}: NaN maxval pattern differs")
+    fin = np.isfinite(ts)
+    err = float(np.abs(ks[fin] - ts[fin]).max()) if fin.any() else 0.0
+    check(err <= SHIFT_TOL, f"{label}: kernel vs twin {err} px")
+    finm = np.isfinite(tm)
+    if finm.any():
+        rel = float(np.abs(km[finm] - tm[finm]).max() / max(np.abs(tm[finm]).max(), 1e-30))
+        check(rel <= MAXVAL_RTOL, f"{label}: maxval vs twin {rel}")
+    if oracle is not None:
+        err_o = float(np.abs(ks - oracle).max())
+        check(err_o <= SHIFT_TOL, f"{label}: kernel vs oracle {err_o} px")
+        say(f"  {label}: max|shift - twin| {err:.3g} px, max|shift - oracle| {err_o:.3g} px")
+    return err
+
+
+def masked_pair(n: int, seed: int):
+    """One float32 ``[1, n, n]`` pair whose content moves by a strong shift
+    of (70, 0) px, beyond the search radius 55, plus a weaker copy moved by
+    (10, 3) px: masked, the peak is the weak one; unmasked, the strong one."""
+    from oracle import fourier_shift, smooth_random_image
+
+    base = smooth_random_image(np.random.default_rng(seed), n, cutoff=0.3).astype(np.float64)
+    curr = 0.7 * fourier_shift(base, 70.0, 0.0) + 0.3 * fourier_shift(base, 10.0, 3.0)
+    return curr[None].astype(np.float32), base[None].astype(np.float32)
+
+
+def check_fullfused_kernel(dev) -> tuple:
+    """Phase 10.  Returns (max shift difference from the twin, kernel ms,
+    twin ms) at the node's shape of phase 12(b) (n = 60, P = 64)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.models import FftMethod, FftMethodConfig
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        phase_correlate_fullfused as kernel,
+        phase_correlate_fullfused_ref as twin,
+    )
+
+    def on(x):
+        return torch.from_numpy(x).to(dev)
+
+    errs = []
+    batches = {}
+    for n, pairs in ((60, 1), (45, 1), (90, 1), (100, 1), (160, 1), (240, 1), (480, 16)):
+        c8, p8, oracle = patch_pairs(n, pairs, seed=10 + n)
+        c, p = on(c8), on(p8)
+        batches[n] = (c, p)
+        errs.append(compare_pc(kernel, twin, c, p, f"n={n} P={c.shape[0]}", oracle))
+        ks8 = kernel(c, p)
+        ksf = kernel(c.float(), p.float())
+        check(all(torch.equal(a, b) for a, b in zip(ks8, ksf)), f"n={n}: uint8 and float32 differ")
+        if n == 480:
+            one = kernel(c[:1].contiguous(), p[:1].contiguous())
+            check(all(torch.equal(a, b[:1]) for a, b in zip(one, ks8)), "n=480: P=1 differs from P=16")
+    say("  every n: uint8 and float32 bit-identical; n=480 P=1 equal to the same pair in P=16")
+
+    for n in (45, 480):
+        zero = torch.zeros((2, n, n), dtype=torch.uint8, device=dev)
+        zs, zm = (x.cpu().numpy() for x in kernel(zero, zero))
+        check(np.all(zs == -(n // 2)) and np.all(zm == 0.0), f"n={n}: zero patches give {zs[0]}, {zm[0]}")
+        c, p = batches[n]
+        c = c[:3].float().clone()
+        c[1, n // 3, n // 2] = float("nan")  # a NaN pixel in pair 1
+        c[2] = 0.0  # pair 2: one patch zero, a surface of ties
+        ns, nm = (x.cpu().numpy() for x in kernel(c, p[:3].float().contiguous()))
+        check(np.isnan(ns[1]).all() and np.isnan(nm[1]), f"n={n}: NaN pair gives {ns[1]}, {nm[1]}")
+        check(np.isfinite(ns[0]).all() and np.all(ns[2] == -(n // 2)), f"n={n}: {ns[0]}, {ns[2]}")
+        errs.append(compare_pc(kernel, twin, c, p[:3].float().contiguous(), f"n={n} NaN/tie"))
+    mc, mp = (on(x) for x in masked_pair(480, seed=7))
+    errs.append(compare_pc(kernel, twin, mc, mp, "n=480 masked, radius 55"))
+    errs.append(compare_pc(kernel, twin, mc, mp, "n=480 unmasked, radius 240", search_radius=240))
+    masked = kernel(mc, mp)[0].cpu().numpy()[0]
+    unmasked = kernel(mc, mp, search_radius=240)[0].cpu().numpy()[0]
+    say(f"  n=480 two-shift pair: radius 55 -> {masked.round(3).tolist()}, "
+        f"radius 240 -> {unmasked.round(3).tolist()}")
+    check(np.abs(masked - [10.0, 3.0]).max() < 0.5, f"masked peak {masked}")
+    check(np.abs(unmasked - [70.0, 0.0]).max() < 0.5, f"unmasked peak {unmasked}")
+    err = max(errs)
+
+    # repair F2: method 4 at 480 px with patches kernel A does not take
+    from oracle import fourier_shift, smooth_random_image
+
+    base = smooth_random_image(np.random.default_rng(3), 480, cutoff=0.3).astype(np.float64)
+    frames = np.stack([fourier_shift(base, 2.5 * i, -1.5 * i) for i in range(3)]).astype(np.float32)
+    for patch in (160, 240, 100):
+        cfg = FftMethodConfig(frame_size=480, sample_point_size=patch)
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            eng = FftMethod(cfg, device=d)
+            state = eng.init_state()
+            before = kernel.LAUNCHES
+            for f in frames:
+                state, res = eng.step(state, torch.from_numpy(f).to(d))
+            if d == dev:
+                check(kernel.LAUNCHES - before == len(frames), f"patch {patch}: not through kernel D")
+            outs.append(res.shifts_raw.cpu().numpy())
+        e = float(np.abs(outs[0] - outs[1]).max())
+        say(f"  FftMethod 480/{patch} ({eng.num_windows} windows of {eng.config.sample_point_size}) "
+            f"through kernel D: max|card - CPU| {e:.3g} px, shift {outs[0][0].round(3).tolist()}")
+        check(e <= SHIFT_TOL, f"FftMethod 480/{patch}: card and CPU differ by {e} px")
+
+    c60, p60 = batches[60]
+    ms = time_cuda(lambda: kernel(c60, p60), 200)
+    plain_ms = time_cuda(lambda: twin(c60, p60), 50)
+    c480, p480 = (x[:1].contiguous() for x in batches[480])
+    ms480 = time_cuda(lambda: kernel(c480, p480), 100)
+    plain480 = time_cuda(lambda: twin(c480, p480), 50)
+    say(f"  max|shift - twin| {err:.3g} px; [64, 60, 60]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; "
+        f"[1, 480, 480]: kernel {ms480:.4f} ms, twin {plain480:.4f} ms")
+    say("[10 kernel D] matches twin and oracle at n = 45 to 480; uint8, zero, NaN, tie, masked cases hold")
+    return err, ms, plain_ms
+
+
+def check_fused_kernel(dev) -> tuple:
+    """Phase 11.  Returns (E's launches in the conformance check, max shift
+    difference from the twin, kernel ms, twin ms) on ``[16, 120, 120]``."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import conformance
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        phase_correlate_fused as kernel,
+        phase_correlate_fused_ref as twin,
+    )
+
+    c8, p8, oracle = patch_pairs(120, 1, seed=11)
+    c, p = torch.from_numpy(c8).to(dev).float(), torch.from_numpy(p8).to(dev).float()
+    errs = [compare_pc(kernel, twin, c, p, "E [16, 120, 120]", oracle)]
+    cn = c[:3].clone()
+    cn[1, 40, 60] = float("nan")
+    cn[2] = 0.0
+    ns = kernel(cn, p[:3].contiguous())[0].cpu().numpy()
+    check(np.isnan(ns[1]).all() and np.all(ns[2] == -60.0), f"E NaN/zero give {ns[1]}, {ns[2]}")
+    errs.append(compare_pc(kernel, twin, cn, p[:3].contiguous(), "E NaN/tie"))
+    mc, mp = (torch.from_numpy(x).to(dev) for x in masked_pair(480, seed=7))
+    errs.append(compare_pc(kernel, twin, mc, mp, "E n=480 masked"))
+    masked = kernel(mc, mp)[0].cpu().numpy()[0]
+    check(np.abs(masked - [10.0, 3.0]).max() < 0.5, f"E masked peak {masked}")
+    err = max(errs)
+
+    kernel.LAUNCHES = 0
+    report = conformance.check(c, p, tolerance_px=CONFORMANCE_TOL)
+    launches = kernel.LAUNCHES
+    worst = max(report.values())
+    say(f"  conformance.check on the card: {len(report)} pairs, worst {worst:.3g} px "
+        f"({max(report, key=report.get)}); kernel E launches {launches}")
+    check(len(report) == 10 and worst <= CONFORMANCE_TOL, f"conformance {report}")
+
+    ms = time_cuda(lambda: kernel(c, p), 200)
+    plain_ms = time_cuda(lambda: twin(c, p), 50)
+    say(f"  max|shift - twin| {err:.3g} px; [16, 120, 120]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    say("[11 kernel E] matches its twin; conformance holds on the card")
+    return launches, err, ms, plain_ms
+
+
+def run_long_range_nodes(dev) -> tuple:
+    """Phase 12.  Returns (kernel D's launches in node (b), the latency of
+    each node)."""
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+
+    frames = render_frames(N_FRAMES, heights=LR_HEIGHTS)
+    lr_frames = [i for i, h in enumerate(LR_HEIGHTS) if h < 1.0]
+    modes = "".join("L" if h < 1.0 else "S" for h in LR_HEIGHTS[1:])
+    check("SL" in modes and "LS" in modes, "the heights must cross takeoff_height both ways")
+    latency = {}
+    launches_d = 0
+    # node (a) also runs the scale/rotation estimator, inside both steps
+    for label, patch, name, sr in (
+            ("long range (a) 480/120 + scale/rotation", 120, "phase_correlate_frames", True),
+            ("long range (b) 480/60", 60, "phase_correlate_fullfused", False)):
+        config = NodeConfig(long_range_mode="height_based", takeoff_height=1.0,
+                            sample_point_size=patch, scale_rotation=sr)
+        node, published, launches, lat = drive_node(dev, config, frames, label, heights=LR_HEIGHTS)
+        latency[label] = lat
+        short = [m for t, m in published if t == "velocity_out"]
+        long_ = [m for t, m in published if t == "velocity_out_longrange"]
+        diff = [m for t, m in published if t == "velocity_out_longrange_diff"]
+        n_long = len([i for i in lr_frames if i > 0])
+        check(len(long_) == len(diff) == n_long and len(short) == N_FRAMES - 1 - n_long,
+              f"{label}: {len(short)} short-range and {len(long_)} long-range twists")
+        # the first short-range twist is the first-frame copy (zero shift)
+        v_short = np.array([tw.linear[:2] for tw in short[1:]])
+        v_long = np.array([tw.linear[:2] for tw in long_[1:]])
+        e_short = np.abs(v_short - np.array(V_TRUE)).max()
+        e_long = np.abs(v_long - np.array(V_TRUE)).max()
+        say(f"  {label}: {len(short)} short-range twists, max |v - truth| {e_short:.4f} m/s; "
+            f"{len(long_)} long-range, max {e_long:.4f} m/s (diff topic max "
+            f"{np.abs([tw.linear[:2] for tw in diff]).max():.3g}); modes {modes}")
+        check(e_short <= TWIST_TOL, f"{label}: short-range twist error {e_short}")
+        check(e_long <= LR_TWIST_TOL, f"{label}: long-range twist error {e_long}")
+        check(all(tw.frame_id == "fcu" and tw.covariance[14] == 666.0 for tw in long_ + diff),
+              f"{label}: long-range frame id or covariance")
+        check(node.health["frames_processed"] == N_FRAMES - 1, node.health)
+        check(launches[name] == N_FRAMES - 1, f"{label}: {launches[name]} {name} launches "
+              f"for {N_FRAMES - 1} frames")
+        if name == "phase_correlate_fullfused":
+            check(launches["phase_correlate_frames"] == 0, f"{label}: kernel A launched")
+            launches_d = launches[name]
+        check_lr_scale_rotation(dev, node, frames, published, launches, sr, label)
+    say("[12 long-range nodes] switch both ways; twists within budget; every frame through its kernel")
+    return launches_d, latency
+
+
+def check_lr_scale_rotation(dev, node, frames, published, launches, sr: bool, label: str) -> None:
+    """Phase 12: with scale/rotation, one decode and one kernel B launch a
+    processed frame, short and long range alike, each decode the one the
+    estimator gives on its own on the node's gray windows (the scene only
+    translates, so the decodes themselves carry no truth)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.models.scale_rotation import ScaleRotationEstimator
+    from mrs_optic_flow_tpu_torch.ops.preprocess import center_crop, to_grayscale
+
+    msgs = [m for t, m in published if t == "scale_rotation_out"]
+    if not sr:
+        check(not msgs and launches["peak_refine_raw"] == 0, f"{label}: scale/rotation ran")
+        return
+    check(len(msgs) == N_FRAMES - 1, f"{label}: {len(msgs)} scale/rotation messages")
+    check(launches["peak_refine_raw"] == N_FRAMES - 1,
+          f"{label}: {launches['peak_refine_raw']} kernel B launches for {N_FRAMES - 1} frames")
+    # frame 0 only primes the node: the estimator's first frame is frame 1
+    est = ScaleRotationEstimator(node.scale_rotation_estimator.config, device=dev)
+    state, direct = est.init_state(), []
+    for frame in frames[1:]:
+        gray = center_crop(to_grayscale(torch.from_numpy(frame).to(dev)), 480, 376)
+        state, res = est.step(state, gray)
+        direct.append([float(res.scale), float(res.rotation)])
+    published_sr = np.array([[m["scale"], m["yaw_rate"] * DT] for m in msgs])
+    err = float(np.abs(published_sr - np.array(direct)).max())
+    say(f"  {label}: {len(msgs)} scale/rotation decodes, within {err:.3g} of the estimator on the "
+        f"node's gray windows; kernel B launches {launches['peak_refine_raw']}")
+    check(err <= SR_TWIN_TOL, f"{label}: published decodes differ from the estimator's by {err}")
+
+
+def check_sad_tiled(dev) -> None:
+    """Phase 13 (repair F3): kernel C at blocks larger than a block's
+    shared memory."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import block_matching
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import sad_search as kernel, sad_tile_rows
+
+    rng = np.random.default_rng(13)
+    r = 21
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for s, g in ((160, 9), (240, 4)):
+        rows = sad_tile_rows(s, r, limit)
+        curr = torch.from_numpy(rng.integers(0, 256, (g, s, s)).astype(np.float32)).to(dev)
+        prev = torch.from_numpy(rng.integers(0, 256, (g, s + 2 * r, s + 2 * r)).astype(np.float32)).to(dev)
+        k = kernel(curr, prev, block_size=s, scan_radius=r)
+        t = block_matching.sad_search(curr, prev, block_size=s, scan_radius=r)
+        check(torch.equal(k, t), f"S={s}: max |kernel - twin| {float((k - t).abs().max())}")
+        check(torch.equal(kernel(curr, prev, block_size=s, scan_radius=r), k), f"S={s}: repeated run differs")
+        ms = time_cuda(lambda: kernel(curr, prev, block_size=s, scan_radius=r), 20)
+        say(f"  S={s}, R={r}, G={g}: {rows} rows a tile, bit-identical to the twin; kernel {ms:.4f} ms")
+    say("[13 kernel C, large blocks] maps bit-identical to the twin")
+
+
+def check_route_constants() -> None:
+    """Phase 2: the engines' route constant and kernel C's tiling rule agree
+    with the libraries' shared-memory formulas and the device's limit."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    pcf = ck.load_library("phase_correlate_frames")
+    sad = ck.load_library("sad_search")
+    check(all(pcf.pcf_smem_bytes(n) == ck.pcf_smem_bytes(n) for n in range(1, 481)),
+          "kernel A's shared memory formula")
+    check(limit == ck.H100_SMEM_OPTIN_BYTES, f"the device allows {limit} B of shared memory a block")
+    fits = [n for n in range(1, 481) if pcf.pcf_smem_bytes(n) + ck.STATIC_SMEM_BYTES <= limit]
+    check(max(fits) == ck.PCF_MAX_PATCH, f"kernel A fits up to {max(fits)}, the engines route "
+          f"up to {ck.PCF_MAX_PATCH}")
+    sm_limit = torch.cuda.get_device_properties(0).shared_memory_per_multiprocessor
+    tiles = {}
+    for s, r in ((24, 8), (120, 21), (159, 21), (160, 21), (240, 21)):
+        rows = tiles[s] = ck.sad_tile_rows(s, r, limit)
+        check(sad.sad_smem_bytes(s, r, rows) == ck.sad_smem_bytes(s, r, rows),
+              f"kernel C's formula at S={s}")
+        # two blocks an SM, each with the runtime's 1 KB reserve
+        check(2 * (sad.sad_smem_bytes(s, r, rows) + ck.STATIC_SMEM_BYTES) <= sm_limit,
+              f"kernel C's tile at S={s}: two blocks do not share an SM")
+    say(f"  kernel A takes patches up to {ck.PCF_MAX_PATCH} px ({ck.pcf_smem_bytes(ck.PCF_MAX_PATCH)} B "
+        f"of {limit}); kernel C rows a tile by block size: {tiles} ({sm_limit} B an SM)")
+
+
 def main() -> int:
     import torch
 
@@ -517,6 +868,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
+    check_route_constants()
     say(f"[2 build] {time.perf_counter() - t0:.1f} s")
 
     dev = torch.device("cuda")
@@ -528,11 +880,17 @@ def main() -> int:
     err_c, ms_c, plain_c = check_sad_kernel(dev)
     launches_b = run_scale_rotation_node(dev)
     launches_c = run_block_matching_nodes(dev)
+    err_d, ms_d, plain_d = check_fullfused_kernel(dev)
+    launches_e, err_e, ms_e, plain_e = check_fused_kernel(dev)
+    launches_d, _ = run_long_range_nodes(dev)
+    check_sad_tiled(dev)
 
     rows = {
         "phase_correlate_frames": (launches_a, err_a, ms_a, plain_a),
         "peak_refine_raw": (launches_b, err_b, ms_b, plain_b),
         "sad_search": (launches_c, err_c, ms_c, plain_c),
+        "phase_correlate_fullfused": (launches_d, err_d, ms_d, plain_d),
+        "phase_correlate_fused": (launches_e, err_e, ms_e, plain_e),
     }
     say(json.dumps({"kernels": [{
         "name": name,

@@ -14,12 +14,12 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class NodeConfig:
-    """The YAML parameters of the ported node paths: method 4 short range,
-    methods 3 and 5, each with or without scale/rotation.
+    """The YAML parameters of the ported node paths: method 4 short and long
+    range, methods 3 and 5, each with or without scale/rotation.
 
-    ``long_range_mode``, ``host_preprocess``, ``gui`` and ``store_video``
-    are checked by the node, which rejects any value outside the ported
-    paths.  ``ransac_num_of_chosen``, ``ransac_num_of_iter`` and
+    ``host_preprocess``, ``gui`` and ``store_video`` are checked by the
+    node, which rejects any value outside the ported paths.
+    ``long_range_ratio`` is the YAML's ``tpu.long_range_ratio``.  ``ransac_num_of_chosen``, ``ransac_num_of_iter`` and
     ``ransac_threshold_rad`` are the YAML's ``ransac`` block.
     ``use_pallas_explicit`` says whether the YAML set ``use_pallas``; the
     SAD engines follow ``use_pallas`` only then.  ``mxu_passes``,
@@ -29,7 +29,9 @@ class NodeConfig:
     """
 
     method: int = 4
-    long_range_mode: str = "always_off"
+    long_range_mode: str = "always_off"  # always_off | always_on | height_based | takeoff_based
+    takeoff_height: float = 1.0  # [m], the height_based threshold
+    long_range_ratio: int = 4
     scale_rotation: bool = False
     host_preprocess: bool = False
     gui: bool = False

@@ -3,17 +3,8 @@
 //
 // Replaces the TPU kernel mrs_optic_flow_tpu/ops/pallas_kernels.py::
 // peak_refine_raw_pallas (kernel body _peak_kernel, math
-// _masked_peak_centroid).  It computes the same thing: for each [N, N]
-// surface as the inverse DFT left it (zero shift at (0, 0), not fftshifted),
-// the fftshift as an index offset (raw index i sits at shifted index
-// (i + N/2) mod N), the zeroing of every entry beyond search_radius from the
-// centre on either axis, the argmax over the whole masked surface (masked
-// entries take part as zeros) with ties broken on the smaller fftshifted flat
-// index, and the positive-only weighted centroid over the (2 * centroid_radius
-// + 1)^2 window around the peak, clamped to the surface in shifted coordinates
-// without wrap-around, with an FLT_EPSILON-seeded denominator.  The result is
-// relative to the centre (N/2, N/2).  NaN anywhere inside the search window
-// gives NaN maxval and NaN shifts; NaN outside it is masked to 0.
+// _masked_peak_centroid).  The device code, and what it computes, is in
+// peak_refine.cuh, which kernels D and E share.
 //
 // What bounds it on this card: device-memory bandwidth, one read of each
 // surface (921.6 KB for the scale/rotation surface, N = 480) and a few
@@ -31,125 +22,7 @@
 // Plain C interface, loaded with ctypes.  The kernel allocates nothing; the
 // caller passes the output buffers and the stream.
 
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstddef>
-
-namespace {
-
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kFltEpsilon = 1.1920928955078125e-07f;  // FLT_EPSILON
-
-// (value, shifted flat index) candidate: larger value wins, ties go to the
-// smaller index.  NaN values never enter; they are counted in a flag.
-__device__ __forceinline__ bool better(float v, int s, float bv, int bs) {
-  return v > bv || (v == bv && s < bs);
-}
-
-__device__ __forceinline__ void warp_argmax(float& best, int& best_s) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFull, best, off);
-    const int os = __shfl_down_sync(kFull, best_s, off);
-    if (better(ov, os, best, best_s)) {
-      best = ov;
-      best_s = os;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    peak_refine_raw_kernel(const float* __restrict__ surf_g, int n, int search_radius,
-                           int centroid_radius, float* __restrict__ shift_out,
-                           float* __restrict__ maxval_out, int* __restrict__ index_out) {
-  const int p = blockIdx.x;
-  const float* __restrict__ surf = surf_g + static_cast<size_t>(p) * n * n;
-  const int half = n / 2;
-
-  float best = -INFINITY;
-  int best_s = n * n;
-  int has_nan = 0;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int y = e / n;
-    const int x = e - y * n;
-    const int sy = y + half < n ? y + half : y + half - n;
-    const int sx = x + half < n ? x + half : x + half - n;
-    const bool keep = abs(sy - half) <= search_radius && abs(sx - half) <= search_radius;
-    const float v = keep ? surf[e] : 0.0f;
-    if (v != v) {
-      has_nan = 1;
-    } else {
-      const int s = sy * n + sx;
-      if (better(v, s, best, best_s)) {
-        best = v;
-        best_s = s;
-      }
-    }
-  }
-  warp_argmax(best, best_s);
-  has_nan = __any_sync(kFull, has_nan);
-
-  __shared__ float warp_best[kWarps];
-  __shared__ int warp_s[kWarps];
-  __shared__ int warp_nan[kWarps];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (lane == 0) {
-    warp_best[warp] = best;
-    warp_s[warp] = best_s;
-    warp_nan[warp] = has_nan;
-  }
-  __syncthreads();
-  if (warp != 0) return;
-
-  best = lane < kWarps ? warp_best[lane] : -INFINITY;
-  best_s = lane < kWarps ? warp_s[lane] : n * n;
-  has_nan = __any_sync(kFull, lane < kWarps && warp_nan[lane]);
-  warp_argmax(best, best_s);
-  best = __shfl_sync(kFull, best, 0);
-  best_s = __shfl_sync(kFull, best_s, 0);
-
-  // positive-only weighted centroid around the peak, in shifted coordinates,
-  // one window entry per lane
-  const int yc = best_s / n;
-  const int xc = best_s - yc * n;
-  const int win = 2 * centroid_radius + 1;
-  float sw = 0.0f, swx = 0.0f, swy = 0.0f;
-  for (int e = lane; e < win * win; e += 32) {
-    const int sy = yc - centroid_radius + e / win;
-    const int sx = xc - centroid_radius + e % win;
-    if (sy < 0 || sy >= n || sx < 0 || sx >= n) continue;
-    if (abs(sy - half) > search_radius || abs(sx - half) > search_radius) continue;
-    const int y = sy >= half ? sy - half : sy + n - half;
-    const int x = sx >= half ? sx - half : sx + n - half;
-    const float v = surf[y * n + x];
-    if (v > 0.0f) {
-      sw += v;
-      swx += v * static_cast<float>(sx);
-      swy += v * static_cast<float>(sy);
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    sw += __shfl_xor_sync(kFull, sw, off);
-    swx += __shfl_xor_sync(kFull, swx, off);
-    swy += __shfl_xor_sync(kFull, swy, off);
-  }
-  if (lane != 0) return;
-  const float denom = sw + kFltEpsilon;
-  float cx = swx / denom - static_cast<float>(half);
-  float cy = swy / denom - static_cast<float>(half);
-  if (has_nan) {
-    best = cx = cy = __int_as_float(0x7fc00000);  // quiet NaN
-  }
-  shift_out[2 * p] = cx;
-  shift_out[2 * p + 1] = cy;
-  maxval_out[p] = best;
-  if (index_out != nullptr) index_out[p] = best_s;
-}
-
-}  // namespace
+#include "peak_refine.cuh"
 
 extern "C" {
 
@@ -158,7 +31,7 @@ extern "C" {
 // CUDA error code of the launch (0 on success).
 int prr_peak_refine_raw(const void* surf, int p, int n, int search_radius, int centroid_radius,
                         void* shift, void* maxval, void* index, void* stream) {
-  peak_refine_raw_kernel<<<p, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  peak::peak_refine_raw_kernel<<<p, peak::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(surf), n, search_radius, centroid_radius,
       static_cast<float*>(shift), static_cast<float*>(maxval), static_cast<int*>(index));
   return static_cast<int>(cudaGetLastError());

@@ -12,10 +12,21 @@ Pallas SAD kernel in :mod:`mrs_optic_flow_tpu.ops.block_matching`:
   centroid of raw correlation surfaces (``csrc/peak_refine_raw.cu``);
 - kernel C, :func:`sad_search`, replaces
   ``block_matching.py::sad_search_pallas``: the exhaustive block-matching
-  SAD map of each grid cell (``csrc/sad_search.cu``).
+  SAD map of each grid cell (``csrc/sad_search.cu``);
+- kernel D, :func:`phase_correlate_fullfused`, replaces
+  ``pallas_kernels.py::phase_correlate_fullfused_pallas``: ``[P, N, N]``
+  patch pairs of any size in, one ``(shift, maxval)`` per pair out, in
+  staged tiled launches (``csrc/phase_correlate_fullfused.cu``);
+- kernel E, :func:`phase_correlate_fused`, replaces
+  ``pallas_kernels.py::phase_correlate_fused_pallas``: the cross-power, full
+  inverse DFT and peak of forward spectra that the wrapper computes
+  (``csrc/phase_correlate_fused.cu``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a library of its own
-under ``build/torch_kernels/`` at first use, and is bound with ctypes.
+under ``build/torch_kernels/`` at first use, and is bound with ctypes.  The
+headers in ``csrc/`` hold device code that several sources share: the peak
+stage of kernel B (``peak_refine.cuh``, in B, D and E) and the tiled DFT
+stages (``dft_stages.cuh``, in D and E).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain twin;
 CUDA tensors launch the kernel or raise.  Nothing falls back from a kernel to
@@ -38,6 +49,7 @@ from mrs_optic_flow_tpu_torch.ops import block_matching
 from mrs_optic_flow_tpu_torch.ops.phase_correlate import (
     DEFAULT_CENTROID_RADIUS,
     DEFAULT_SEARCH_RADIUS,
+    _dft2_real,
     _dft_matrices,
     correlation_surface,
     peak_refine,
@@ -53,6 +65,8 @@ SOURCES = {
     "phase_correlate_frames": "phase_correlate_frames.cu",
     "peak_refine_raw": "peak_refine_raw.cu",
     "sad_search": "sad_search.cu",
+    "phase_correlate_fullfused": "phase_correlate_fullfused.cu",
+    "phase_correlate_fused": "phase_correlate_fused.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -74,9 +88,23 @@ _SIGNATURES = {
         "prr_peak_refine_raw": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
     },
     "sad_search": {
-        "sad_smem_bytes": (_LL, [_I, _I]),
-        # curr, prev, g, s, r, out, stream
-        "sad_sad_search": (_I, [_P, _P, _I, _I, _I, _P, _P]),
+        "sad_smem_bytes": (_LL, [_I, _I, _I]),
+        # curr, prev, g, s, r, tile_rows, out, stream
+        "sad_sad_search": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
+    },
+    "phase_correlate_fullfused": {
+        "pcff_scratch_bytes": (_LL, [_I]),
+        # curr, prev, is_u8, p, n, chunk, radii, tab, scratch, shift, maxval,
+        # stream
+        "pcff_phase_correlate_fullfused": (_I, [_P, _P, _I, _I, _I, _I, _I, _I,
+                                                _P, _P, _P, _P, _P]),
+    },
+    "phase_correlate_fused": {
+        "pcfu_scratch_bytes": (_LL, [_I]),
+        # f1r, f1i, f2r, f2i, p, n, chunk, radii, tab, scratch, shift, maxval,
+        # stream
+        "pcfu_phase_correlate_fused": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                            _P, _P, _P, _P, _P]),
     },
 }
 
@@ -122,9 +150,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Kernel ``name``'s library, built first when missing or older than its
-    source."""
+    source or a shared header."""
     lib_path = library_path(name)
-    if not lib_path.exists() or (CSRC / SOURCES[name]).stat().st_mtime > lib_path.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in [CSRC / SOURCES[name], *CSRC.glob("*.cuh")])
+    if not lib_path.exists() or newest > lib_path.stat().st_mtime:
         build([name])
     lib = ctypes.CDLL(str(lib_path))
     for fn, (restype, argtypes) in _SIGNATURES[name].items():
@@ -148,9 +177,17 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what}: tensors must be contiguous")
 
 
+#: bytes of static shared memory a kernel may add to its dynamic request
+STATIC_SMEM_BYTES = 1024
+
+
+def _smem_limit(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
 def _smem_fits(smem: int, device: torch.device, what: str) -> None:
-    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
-    if smem + 1024 > limit:  # 1 KiB for the kernel's static shared memory
+    limit = _smem_limit(device)
+    if smem + STATIC_SMEM_BYTES > limit:
         raise ValueError(f"{what} needs {smem} B of shared memory; the device allows {limit}")
 
 
@@ -159,13 +196,40 @@ def _smem_fits(smem: int, device: torch.device, what: str) -> None:
 # --------------------------------------------------------------------------- #
 
 
+#: shared memory of one block of an H100 (and H200) with the opt-in attribute
+H100_SMEM_OPTIN_BYTES = 232_448
+
+
+def pcf_smem_bytes(n: int) -> int:
+    """Kernel A's dynamic shared memory for patch ``n``: three ``n x (n/2 +
+    1)`` complex buffers and the ``n``-entry twiddle table, as
+    ``pcf_smem_bytes`` in ``csrc/phase_correlate_frames.cu`` computes it."""
+    return (3 * n * (n // 2 + 1) + n) * 8
+
+
+#: the largest patch kernel A takes on an H100: 137 (227,968 B); with the
+#: engines' multiple-of-8 rule, 136
+PCF_MAX_PATCH = max(
+    n for n in range(1, 1024) if pcf_smem_bytes(n) + STATIC_SMEM_BYTES <= H100_SMEM_OPTIN_BYTES
+)
+
+
+def frames_kernel_takes(patch: int) -> bool:
+    """The route rule of the engines: kernel A for a patch that is a
+    multiple of 8 (the JAX engine's rule for its frames kernel) and within
+    A's shared memory; kernel D for every other patch.  A constant, so that
+    the CPU and the card route alike."""
+    return patch % 8 == 0 and patch <= PCF_MAX_PATCH
+
+
 @functools.lru_cache(maxsize=None)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     """``[n, 2]`` float32 table ``(cos, sin)(-2 pi m / n)``: row 1 of
-    :func:`_dft_matrices` (built in float64, cast to float32).  The kernel
-    reads entry ``(j, k)`` of the DFT matrix as ``m = j*k mod n``; the
+    :func:`_dft_matrices` (built in float64, cast to float32).  The kernels
+    read entry ``(j, k)`` of the DFT matrix as ``m = j*k mod n``; the
     reduced angle differs from the float64 matrix entry by at most 1.2e-13
-    absolute for n <= 136."""
+    absolute for n <= 136 and 5.9e-13 for n <= 480 (the float32 tables by
+    at most 5.1e-13)."""
     c, s = _dft_matrices(n)
     tab = np.ascontiguousarray(np.stack([c[1], s[1]], axis=-1))
     return torch.from_numpy(tab).to(device)
@@ -328,6 +392,24 @@ peak_refine_raw.LAUNCHES = 0
 # --------------------------------------------------------------------------- #
 
 
+def sad_smem_bytes(s: int, r: int, tile_rows: int) -> int:
+    """Kernel C's dynamic shared memory with ``tile_rows`` block rows a
+    tile: the per-lane float64 accumulators ``[2R+1, 32]`` and the rows of
+    block and region (``sad_smem_bytes`` in ``csrc/sad_search.cu``)."""
+    return (2 * r + 1) * 32 * 8 + tile_rows * (2 * s + 2 * r) * 4
+
+
+def sad_tile_rows(s: int, r: int, smem_limit: int) -> int:
+    """Block rows a tile for kernel C under a block's shared-memory limit:
+    the fewest tiles, of even size, whose footprint lets two blocks share an
+    SM (half the limit), at least 1 row.  Two blocks an SM beat one block
+    with a larger tile on the card (S = 120: 0.22 against 0.30 ms)."""
+    budget = smem_limit // 2 - STATIC_SMEM_BYTES
+    fit = max(1, (budget - sad_smem_bytes(s, r, 0)) // ((2 * s + 2 * r) * 4))
+    tiles = -(-s // fit)
+    return -(-s // tiles)
+
+
 def sad_search(
     curr_blocks: torch.Tensor,
     prev_regions: torch.Tensor,
@@ -341,7 +423,8 @@ def sad_search(
     :func:`~mrs_optic_flow_tpu_torch.ops.block_matching.sad_search`).
 
     CPU tensors run that plain twin.  CUDA tensors launch
-    ``csrc/sad_search.cu`` on the current stream; each launch adds one to
+    ``csrc/sad_search.cu`` on the current stream, tiled over block rows
+    (:func:`sad_tile_rows`); each launch adds one to
     ``sad_search.LAUNCHES``.
     """
     if curr_blocks.device.type == "cpu" and prev_regions.device.type == "cpu":
@@ -365,11 +448,13 @@ def sad_search(
     out = torch.empty((g, d, d), dtype=torch.float32, device=curr_blocks.device)
     if g:
         lib = load_library("sad_search")
-        _smem_fits(lib.sad_smem_bytes(s, r), curr_blocks.device, f"block {s}, radius {r}")
+        tile_rows = sad_tile_rows(s, r, _smem_limit(curr_blocks.device))
+        _smem_fits(lib.sad_smem_bytes(s, r, tile_rows), curr_blocks.device,
+                   f"block {s}, radius {r}, {tile_rows} rows a tile")
         with torch.cuda.device(curr_blocks.device):
             err = lib.sad_sad_search(
-                curr_blocks.data_ptr(), prev_regions.data_ptr(), g, s, r, out.data_ptr(),
-                torch.cuda.current_stream(curr_blocks.device).cuda_stream,
+                curr_blocks.data_ptr(), prev_regions.data_ptr(), g, s, r, tile_rows,
+                out.data_ptr(), torch.cuda.current_stream(curr_blocks.device).cuda_stream,
             )
         _check_launch(err, "sad_search")
         sad_search.LAUNCHES += 1
@@ -377,3 +462,146 @@ def sad_search(
 
 
 sad_search.LAUNCHES = 0
+
+
+# --------------------------------------------------------------------------- #
+# kernels D and E: patch-batch phase correlation of any patch size            #
+# --------------------------------------------------------------------------- #
+
+#: scratch of one chunk of kernel D or E: a chunk's intermediates stay in
+#: the card's 50 MB L2 cache
+CHUNK_SCRATCH_BYTES = 32 << 20
+#: chunk bound from the launch grids' y dimension (2 * chunk <= 65535)
+MAX_CHUNK = 16384
+
+
+def _chunk(p: int, pair_bytes: int) -> int:
+    return max(1, min(p, CHUNK_SCRATCH_BYTES // pair_bytes, MAX_CHUNK))
+
+
+def _check_pairs(what: str, dtypes, curr: torch.Tensor, prev: torch.Tensor,
+                 search_radius: int, centroid_radius: int) -> None:
+    """Raise on anything kernels D and E do not take: two contiguous
+    ``[P, N, N]`` batches of one dtype in ``dtypes`` on one CUDA device."""
+    _check_cuda(what, curr, prev)
+    if curr.dtype not in dtypes or prev.dtype != curr.dtype:
+        raise ValueError(f"{what}: expected {' or '.join(str(d) for d in dtypes)} patches of one "
+                         f"dtype, got {curr.dtype} and {prev.dtype}")
+    if curr.ndim != 3 or curr.shape[-1] != curr.shape[-2] or prev.shape != curr.shape:
+        raise ValueError(f"{what}: expected two [P, N, N] batches, got {tuple(curr.shape)} "
+                         f"and {tuple(prev.shape)}")
+    if search_radius < 0 or centroid_radius < 0:
+        raise ValueError("radii must be non-negative")
+
+
+def _launch_staged(wrapper, prefix: str, inputs: tuple, curr: torch.Tensor,
+                   search_radius: int, centroid_radius: int):
+    """Launch kernel D or E (library ``wrapper.__name__``, C functions
+    ``<prefix>_scratch_bytes`` and ``<prefix>_<name>``) over the ``[P, N,
+    N]`` batch shaped like ``curr``, its leading arguments ``inputs`` (data
+    pointers and flags, whose tensors the caller holds), with a scratch of
+    ``_chunk`` pairs.  Adds one to ``wrapper.LAUNCHES``.  Returns ``(shift
+    [P, 2], maxval [P])``."""
+    name = wrapper.__name__
+    p, n = curr.shape[0], curr.shape[-1]
+    shift = torch.empty((p, 2), dtype=torch.float32, device=curr.device)
+    maxval = torch.empty((p,), dtype=torch.float32, device=curr.device)
+    if p and n:
+        lib = load_library(name)
+        pair_bytes = getattr(lib, f"{prefix}_scratch_bytes")(n)
+        chunk = _chunk(p, pair_bytes)
+        scratch = torch.empty((chunk * pair_bytes,), dtype=torch.uint8, device=curr.device)
+        tab = _twiddles(n, curr.device)
+        with torch.cuda.device(curr.device):
+            err = getattr(lib, f"{prefix}_{name}")(
+                *inputs, p, n, chunk, search_radius, centroid_radius, tab.data_ptr(),
+                scratch.data_ptr(), shift.data_ptr(), maxval.data_ptr(),
+                torch.cuda.current_stream(curr.device).cuda_stream,
+            )
+        _check_launch(err, name)
+        wrapper.LAUNCHES += 1
+    return shift, maxval
+
+
+def phase_correlate_fullfused_ref(
+    curr: torch.Tensor,
+    prev: torch.Tensor,
+    *,
+    search_radius: int = DEFAULT_SEARCH_RADIUS,
+    centroid_radius: int = DEFAULT_CENTROID_RADIUS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of kernels D and E: the ``dft`` correlation
+    surface (float32 matrix products: forward DFTs, cross-power, the
+    inverse's real part; fftshift and mask) and the peak refine of
+    :mod:`~mrs_optic_flow_tpu_torch.ops.phase_correlate`.  Same contract as
+    :func:`phase_correlate_fullfused`."""
+    surf = correlation_surface(curr, prev, search_radius=search_radius, backend="dft")
+    return peak_refine(surf, centroid_radius=centroid_radius)
+
+
+#: kernel E computes the function of kernel D from the forward spectra: one twin
+phase_correlate_fused_ref = phase_correlate_fullfused_ref
+
+
+def phase_correlate_fullfused(
+    curr: torch.Tensor,
+    prev: torch.Tensor,
+    *,
+    search_radius: int = DEFAULT_SEARCH_RADIUS,
+    centroid_radius: int = DEFAULT_CENTROID_RADIUS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D: ``[P, N, N]`` patch pairs (uint8 or float32, any N >= 1)
+    -> ``(shift [P, 2], maxval [P])``; uint8 and float32 patches of the
+    same values give bit-identical results.
+
+    CPU tensors run :func:`phase_correlate_fullfused_ref`.  CUDA tensors
+    launch ``csrc/phase_correlate_fullfused.cu`` on the current stream,
+    ``CHUNK_SCRATCH_BYTES`` of pairs at a time; each launch adds one to
+    ``phase_correlate_fullfused.LAUNCHES``.
+    """
+    if curr.device.type == "cpu" and prev.device.type == "cpu":
+        return phase_correlate_fullfused_ref(
+            curr, prev, search_radius=search_radius, centroid_radius=centroid_radius,
+        )
+    _check_pairs("phase_correlate_fullfused", (torch.uint8, torch.float32), curr, prev,
+                 search_radius, centroid_radius)
+    inputs = (curr.data_ptr(), prev.data_ptr(), int(curr.dtype == torch.uint8))
+    return _launch_staged(phase_correlate_fullfused, "pcff", inputs, curr, search_radius,
+                          centroid_radius)
+
+
+phase_correlate_fullfused.LAUNCHES = 0
+
+
+def phase_correlate_fused(
+    curr: torch.Tensor,
+    prev: torch.Tensor,
+    *,
+    search_radius: int = DEFAULT_SEARCH_RADIUS,
+    centroid_radius: int = DEFAULT_CENTROID_RADIUS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E: ``[P, N, N]`` float32 patch pairs (any N >= 1) ->
+    ``(shift [P, 2], maxval [P])``.  The forward spectra are float32
+    matrix products in plain PyTorch (``_dft2_real``, as the JAX package
+    left them to XLA); the kernel takes the cross-power, the full complex
+    inverse DFT and the peak.
+
+    CPU tensors run :func:`phase_correlate_fused_ref`.  CUDA tensors launch
+    ``csrc/phase_correlate_fused.cu`` on the current stream,
+    ``CHUNK_SCRATCH_BYTES`` of pairs at a time; each launch adds one to
+    ``phase_correlate_fused.LAUNCHES``.
+    """
+    if curr.device.type == "cpu" and prev.device.type == "cpu":
+        return phase_correlate_fused_ref(
+            curr, prev, search_radius=search_radius, centroid_radius=centroid_radius,
+        )
+    _check_pairs("phase_correlate_fused", (torch.float32,), curr, prev, search_radius,
+                 centroid_radius)
+    f1r, f1i = _dft2_real(curr)
+    f2r, f2i = _dft2_real(prev)
+    inputs = tuple(f.data_ptr() for f in (f1r, f1i, f2r, f2i))
+    return _launch_staged(phase_correlate_fused, "pcfu", inputs, curr, search_radius,
+                          centroid_radius)
+
+
+phase_correlate_fused.LAUNCHES = 0

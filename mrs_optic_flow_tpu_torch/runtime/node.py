@@ -1,4 +1,4 @@
-"""OpticFlowNode — the node's short-range paths in PyTorch.
+"""OpticFlowNode — the node in PyTorch.
 
 Port of :class:`mrs_optic_flow_tpu.runtime.node.OpticFlowNode`, the
 transport-agnostic rebuild of the ROS nodelet ``mrs_optic_flow/OpticFlow``
@@ -9,16 +9,19 @@ warm-up, checkpoints and health.  Published messages go through a pluggable
 
 Each frame runs one eager function on the node's device.  With method 4
 (:meth:`_frame_step`): preprocess -> ``FftMethod.step`` (kernel A on a CUDA
-device) -> ``get_rt`` -> detilt and body rotation.  With the block-matching
-methods 3 and 5 (:meth:`_frame_step_simple`): preprocess -> the SAD engine
-(kernel C) -> per-cell velocities -> consensus by ``filter_method`` -> body
-rotation.  With ``scale_rotation`` the log-polar estimator (kernel B) runs
-in the same function on the same gray frame.  The frame and one packed
-parameter vector go up, and one ``summary`` tensor comes back: one readback
-per frame, as in the JAX node.
+device, or kernel D for a patch kernel A does not take) -> ``get_rt`` ->
+detilt and body rotation; in long-range mode (:meth:`_frame_step_lr`, chosen
+per frame by ``long_range_mode``): preprocess -> ``FftMethod.step_long_range``
+on the downsampled frames -> ``get_2dt`` -> body rotation.  With the
+block-matching methods 3 and 5 (:meth:`_frame_step_simple`): preprocess ->
+the SAD engine (kernel C) -> per-cell velocities -> consensus by
+``filter_method`` -> body rotation.  With ``scale_rotation`` the log-polar
+estimator (kernel B) runs in the same function on the same full-resolution
+gray frame.  The frame and one packed parameter vector go up, and one
+``summary`` tensor comes back: one readback per frame, as in the JAX node.
 
-The constructor raises ``NotImplementedError`` for long-range mode, host
-preprocessing, the GUI and video recording; ROADMAP.md lists them.
+The constructor raises ``NotImplementedError`` for host preprocessing, the
+GUI and video recording; ROADMAP.md lists them.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from mrs_optic_flow_tpu_torch.config import NodeConfig
 from mrs_optic_flow_tpu_torch.convert import node_state_from_numpy
 from mrs_optic_flow_tpu_torch.filters.allsac import allsac_mean, point_mean, ransac_mean
 from mrs_optic_flow_tpu_torch.filters.stats import SpeedBox, analyze_speeds
-from mrs_optic_flow_tpu_torch.geometry.motion import get_rt
+from mrs_optic_flow_tpu_torch.geometry.motion import get_2dt, get_rt
 from mrs_optic_flow_tpu_torch.geometry.rotations import (
     matrix_from_quat,
     quat_axis_angle,
@@ -71,8 +74,6 @@ from mrs_optic_flow_tpu_torch.runtime.profiler import Profiler, ThrottledLog
 def _check_supported(c: NodeConfig) -> None:
     """Reject configurations outside the ported path, naming the ROADMAP item."""
     unsupported = [
-        (c.long_range_mode != "always_off", f"long_range_mode {c.long_range_mode!r}",
-         "queue 1 item 7"),
         (c.host_preprocess, "host_preprocess", "queue 1 item 6"),
         (c.gui or c.store_video, "gui / store_video", "queue 1 item 6"),
     ]
@@ -117,6 +118,7 @@ class OpticFlowNode:
                 4, device=self.device, **engine_kwargs,
                 max_pixel_speed=c.max_pixel_speed, use_pallas=c.use_pallas,
                 backend=c.backend, quantize_8bit=c.quantize_8bit,
+                long_range_ratio=c.long_range_ratio,
             )
         else:
             # the SAD engines follow use_pallas only when the YAML set it
@@ -301,6 +303,17 @@ class OpticFlowNode:
             return False
         return self.active_tracker == "LandoffTracker"
 
+    def _resolve_long_range(self) -> bool:
+        """The four ``long_range_mode`` policies (``src/optic_flow.cpp:1575-1585``)."""
+        mode = self.config.long_range_mode
+        if mode == "always_on":
+            return True
+        if mode == "takeoff_based":
+            return self.is_uav_landoff()
+        if mode == "height_based":
+            return self.uav_height < self.config.takeoff_height
+        return False  # always_off
+
     # ------------------------------------------------------------------ #
     # image path                                                          #
     # ------------------------------------------------------------------ #
@@ -390,7 +403,8 @@ class OpticFlowNode:
     def _frame_step(self, gray: torch.Tensor, params: torch.Tensor, cx_eff: int):
         """The method-4 device chain on the gray window: engine step ->
         getRT -> detilt and body-frame rotation.  ``params`` packs
-        ``[height, dt, K (9), dist (5), c2b (4), rate_quat (4), detilt (4)]``.
+        ``[height, dt, K (9), dist (5), c2b (4), rate_quat (4), detilt (4),
+        height_lr, roll_rate, pitch_rate, cam_yaw]``.
         Returns the new flow and scale/rotation states and the ``summary``
         vector ``[ok, tran_b (3), ang (3), n_inliers, ang_diff_rejected]``,
         then ``[scale, rot]`` with scale/rotation, then the raw shifts with
@@ -419,6 +433,33 @@ class OpticFlowNode:
             ang,
             res.n_inliers.to(torch.float32)[None],
             res.ang_diff_rejected.to(torch.float32)[None],
+            *sr_parts,
+        ]
+        if c.raw_output:
+            parts.append(flow.shifts_raw.reshape(-1))
+        return flow_state, sr_state, torch.cat(parts)
+
+    def _frame_step_lr(self, gray: torch.Tensor, params: torch.Tensor):
+        """The long-range device chain (the JAX node's ``_frame_program_lr``,
+        ``src/optic_flow.cpp:1779-1867``): ``step_long_range`` on frames
+        downsampled by ``long_range_ratio`` -> ``get2DT`` with the
+        tilt-corrected height ``height_lr`` (``:1781``) -> body-frame rotation
+        of the velocity and of its rate-correction delta.  Same ``params`` as
+        :meth:`_frame_step`; no random draws.  Returns the new states and the
+        summary ``[ok, tran_b (3), diff_b (3)]``, then ``[scale, rot]`` with
+        scale/rotation (on the full-resolution gray, like the reference's
+        ``imCurr_`` feed), then the long-range shifts with ``raw_output``."""
+        c = self.config
+        dt, cam, c2b = params[1], params[2:11].reshape(3, 3), params[16:20]
+        height_lr, roll_rate, pitch_rate, cam_yaw = params[28:32]
+        flow_state, flow = self.engine.step_long_range(self.flow_state, gray)
+        res = get_2dt(flow.shifts, height_lr, dt, cam, roll_rate, pitch_rate, cam_yaw,
+                      long_range_ratio=self.engine.config.long_range_ratio)
+        sr_state, sr_parts = self._sr_step(gray)
+        parts = [
+            res.ok.to(torch.float32)[None],
+            quat_rotate(c2b, res.tran),
+            quat_rotate(c2b, res.tran_diff),
             *sr_parts,
         ]
         if c.raw_output:
@@ -462,7 +503,11 @@ class OpticFlowNode:
             parts.append(cells.reshape(-1))
         return flow_state, sr_state, torch.cat(parts)
 
-    def _process_image(self, msg: ImageMsg) -> Optional[TwistWithCovarianceStamped]:
+    def _process_image(
+        self, msg: ImageMsg, long_range: Optional[bool] = None
+    ) -> Optional[TwistWithCovarianceStamped]:
+        """One frame through the node's chain.  ``long_range`` (default: the
+        ``long_range_mode`` policy) picks the method-4 mode."""
         if self.first_image:
             self.first_image = False
             return None  # wait for two images (src/optic_flow.cpp:1544-1547)
@@ -497,23 +542,33 @@ class OpticFlowNode:
             detilt = np.asarray([0.0, 0.0, 0.0, 1.0])
         frame_id = self.uav_untilted_frame if detilted else self.uav_frame
 
+        # get2DT takes the height corrected by the static tilt (:1781)
+        height_lr = height / (np.cos(self.imu_pitch) * np.cos(self.imu_roll))
         params = np.concatenate([
             [height, self.dt], np.ravel(cam_eff), np.ravel(self.dist_coeffs)[:5],
             self.c2b_quat, self.angular_rate_quat, detilt,
+            [height_lr, self.imu_roll_rate, self.imu_pitch_rate, self.cam_yaw],
         ]).astype(np.float32)
         simple = not isinstance(self.engine, FftMethod)
-        with self._mutex, self.profiler.routine("frame_program_simple" if simple else "frame_program"):
+        if long_range is None:
+            long_range = self._resolve_long_range()
+        long_range = long_range and not simple
+        routine = ("frame_program_simple" if simple
+                   else "frame_program_lr" if long_range else "frame_program")
+        with self._mutex, self.profiler.routine(routine):
             gray = self._gray(torch.from_numpy(img).to(self.device), channels, cx_eff)
             params_dev = torch.from_numpy(params).to(self.device)
             if simple:
                 states = self._frame_step_simple(gray, params_dev)
+            elif long_range:
+                states = self._frame_step_lr(gray, params_dev)
             else:
                 states = self._frame_step(gray, params_dev, cx_eff)
             self.flow_state, self.scale_rot_state, summary_dev = states
         # ONE readback: [ok, tran_b (3)(, ang (3), n_inliers,
-        # ang_diff_rejected)(, scale, rot)(, raw shifts)]
+        # ang_diff_rejected | , diff_b (3))(, scale, rot)(, raw shifts)]
         summary = summary_dev.cpu().numpy()
-        k = 4 if simple else 9
+        k = 4 if simple else 7 if long_range else 9
         if self.scale_rotation_estimator is not None:
             # published regardless of the flow gate: the estimators are
             # independent (src/optic_flow.cpp:1629-1650)
@@ -522,7 +577,7 @@ class OpticFlowNode:
         if c.raw_output:
             self.publish("points_raw_out", summary[k:].reshape(-1, 2))
         if not bool(summary[0] > 0.5):
-            if not simple and bool(summary[8] > 0.5):
+            if not (simple or long_range) and bool(summary[8] > 0.5):
                 # src/optic_flow.cpp:682-684 (throttled, 1 Hz)
                 self.log_throttled(
                     "angdiff", "[OpticFlow]: Angle difference greater than pi/4, skipping."
@@ -531,6 +586,8 @@ class OpticFlowNode:
             return None
         tran_b = summary[1:4]
         fx = float(cam_eff[0, 0])
+        if long_range:
+            return self._publish_long_range(msg.stamp, tran_b, summary[4:7], height, fx)
         if simple:
             # methods 3/5: a planar velocity in the body frame, no vertical
             # or angular estimate
@@ -570,6 +627,33 @@ class OpticFlowNode:
         self._note_result(True)
         self._frames_processed += 1
         return twist
+
+    def _publish_long_range(self, stamp, tran_b, diff_b, height: float, fx: float):
+        """The long-range outputs (``src/optic_flow.cpp:1779-1867``):
+        ``velocity_out_longrange`` and ``velocity_out_longrange_diff`` in the
+        body frame ``uav_frame``, planar, with z and the angular rate NaN and
+        their covariances 666 (``:1839-1846``).  Returns the first."""
+        if not np.all(np.isfinite(tran_b[:2])):
+            self.log("[OpticFlow]: NaNs in output, returning.")
+            self._note_result(False)
+            return None
+        twists = []
+        for topic, vec_b in (("velocity_out_longrange", tran_b),
+                             ("velocity_out_longrange_diff", diff_b)):
+            twist = TwistWithCovarianceStamped.make(
+                frame_id=self.uav_frame,
+                stamp=stamp,
+                linear=(float(vec_b[0]), float(vec_b[1]), float("nan")),
+                angular=(float("nan"),) * 3,
+                cov_xy=(50.0 * height / fx) ** 2,
+                cov_z=666.0,
+                cov_ang=666.0,
+            )
+            self.publish(topic, twist)
+            twists.append(twist)
+        self._note_result(True)
+        self._frames_processed += 1
+        return twists[0]
 
     def _publish_scale_rotation(self, stamp, scale: float, rotation: float, height: float):
         """``scale_rotation_out``: the frame's scale and rotation, the yaw
@@ -621,10 +705,11 @@ class OpticFlowNode:
 
     def warmup(self, image_shape=None) -> float:
         """Run one synthetic frame pair per input geometry through the whole
-        chain (builds the kernel libraries on a CUDA device) without touching
-        the live stream: the flow and scale/rotation carries, diagnostics
-        history, health counters and the random generator are restored.
-        Requires camera info.  Returns the wall time spent."""
+        chain, in both modes of method 4 (builds the kernel libraries on a
+        CUDA device), without touching the live stream: the flow and
+        scale/rotation carries, diagnostics history, health counters and the
+        random generator are restored.  Requires camera info.  Returns the
+        wall time spent."""
         if not self.got_camera_info:
             raise RuntimeError("warmup needs camera info (on_camera_info first)")
         t0 = time.perf_counter()
@@ -648,8 +733,11 @@ class OpticFlowNode:
             self._begin = 0.0
             self.dt = 0.05
             self.uav_height = max(self.uav_height, 1.0)
-            for shape in shapes:
-                self._process_image(ImageMsg(stamp=0.05, data=np.zeros(shape, np.uint8)))
+            modes = (False, True) if isinstance(self.engine, FftMethod) else (False,)
+            for long_range in modes:
+                for shape in shapes:
+                    self._process_image(ImageMsg(stamp=0.05, data=np.zeros(shape, np.uint8)),
+                                        long_range=long_range)
         finally:
             self.publish = pub
             (

@@ -126,13 +126,16 @@ def test_tpu_knobs_accepted_and_ignored():
 
 
 def test_unported_routes_raise():
+    """Every route of the JAX engine is ported, long range included
+    (tests/test_torch_long_range.py); what the JAX engine refuses, the port
+    refuses."""
     with pytest.raises(ValueError, match="backend"):
         FftMethod(FftMethodConfig(backend="nope"))
-    eng = FftMethod()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.step_long_range(eng.init_state(), torch.zeros((480, 480)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.step_batch_long_range(torch.zeros((1, 480, 480)), torch.zeros((1, 480, 480)))
+    eng = FftMethod(FftMethodConfig(frame_size=128, sample_point_size=64))
+    _, res = eng.step_long_range(eng.init_state(), torch.zeros((128, 128)))
+    assert tuple(res.shifts.shape) == (eng.num_windows_lr, 2) == (1, 2)
+    with pytest.raises(ValueError, match="grid"):  # a frame that is no grid of 64 px patches
+        eng.step(eng.init_state(), torch.zeros((100, 100)))
     assert isinstance(make_engine(4, frame_size=128, sample_point_size=64), FftMethod)
     with pytest.raises(ValueError, match="invalid method"):
         make_engine(7)

@@ -138,13 +138,13 @@ def test_checkpoint_round_trip_and_geometry_check(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "field,value",
-    [("long_range_mode", "height_based"), ("host_preprocess", True), ("gui", True),
-     ("store_video", True)],
+    "fields",
+    [{"host_preprocess": True, "long_range_mode": "height_based"}, {"host_preprocess": True},
+     {"gui": True}, {"store_video": True}],
 )
-def test_unsupported_configs_raise(field, value):
+def test_unsupported_configs_raise(fields):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OpticFlowNode(NodeConfig(**{field: value}))
+        OpticFlowNode(NodeConfig(**fields))
 
 
 def test_warmup_leaves_the_stream_untouched():

@@ -257,7 +257,8 @@ def test_block_matching_node_matches_jax(method, filter_method, scale_rotation):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("method", 3), ("scale_rotation", True), ("use_pallas", False), ("backend", "fft")],
+    [("method", 3), ("scale_rotation", True), ("use_pallas", False), ("backend", "fft"),
+     ("long_range_mode", "height_based")],
 )
 def test_newly_supported_configs_construct(field, value):
     node = OpticFlowNode(NodeConfig(**{field: value}))
