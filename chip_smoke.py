@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --baseline-kernel-a PATH  # phases 1 and 2, then compare_kernel_a
 
 Phases, each printing a line when it finishes:
 
@@ -9,16 +10,20 @@ Phases, each printing a line when it finishes:
 2. build: compiles the hand-written kernels A to E from
    ``mrs_optic_flow_tpu_torch/csrc/`` into ``build/torch_kernels/``, one
    ``nvcc`` per source, all started together, and checks the engines' route
-   constant (kernel A's largest patch) and kernel C's tile (two blocks an
-   SM) against the libraries' shared-memory formulas and the device's
-   limits;
+   constant (kernel A's largest patch), kernel A's blocks an SM (two at
+   n = 120) and kernel C's tile (two blocks an SM) against the libraries'
+   shared-memory formulas and the device's limits;
 3. kernel A against its plain twin and the NumPy oracle (``tests/oracle.py``)
    on the shared accuracy pairs (480 px frames, 120 px patches, uint8), plus
    the edge cases: zero frames, identical frames, a NaN pixel, float32
-   input, batches 1 and 3;
-4. throughput of ``FftMethod.step_batch`` at the bench point (4,096 uint8
-   480² pairs, 4x4 patches of 120 px) against the twin on the same batch
-   (about 60 GB of intermediates), and both at the node's batch of 1;
+   input, batches 1 and 3; then at every patch it takes (multiples of 8 up
+   to ``PCF_MAX_PATCH``, q x q windows, q >= 2), one-sided zero pairs (a
+   surface of ties) and windows with a strong shift beyond the search
+   radius and a weak one within it;
+4. kernel A at B = 1 and at the bench point (4,096 uint8 480² pairs, 4x4
+   patches of 120 px) beside the stock ``torch.fft`` route on the same
+   inputs, its bound and the share of it, the twin, and the throughput of
+   ``FftMethod.step_batch`` at the bench point;
 5. the node: ``OpticFlowNode(NodeConfig(), device="cuda")`` on 20 BGR
    752x480 frames of a texture moving at a known velocity; every published
    twist after the first is held to 0.15 m/s of the truth, and every frame
@@ -42,12 +47,14 @@ Phases, each printing a line when it finishes:
     90, 100, 160 (P = 9), 240 (P = 4) and 480 (P = 1 and 16); uint8 and
     float32 bit-identical; zero patches, a NaN pixel, a one-sided zero pair
     (a surface of ties) and a shift beyond the search radius at n = 480;
-    ``FftMethod`` at 480 px with patches 160, 240 and 100 (one 480 px
-    window) through kernel D against the engine on the CPU; timed at n = 60
-    (P = 64) and n = 480 (P = 1) beside the twin;
+    ``FftMethod`` at 480 px with patch 160 through kernel A, and 240 and 100
+    (one 480 px window) through kernel D, against the engine on the CPU;
+    timed at n = 60 (P = 64) and n = 480 (P = 1) beside the twin and the
+    ``torch.fft`` route;
 11. kernel E against its twin on ``[16, 120, 120]``, a NaN and a masked
     case, then ``conformance.check`` of the five backends on the card (all
-    10 pairs within 0.05 px); both timed;
+    10 pairs within 0.05 px); timed beside the twin and the ``torch.fft``
+    route;
 12. long-range nodes: ``long_range_mode: height_based`` with
     ``takeoff_height`` 1.0 m on 20 frames whose heights cross 1.0 m both
     ways, the render's pixel shift following each frame's height; (a) at
@@ -64,8 +71,12 @@ Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
 one JSON object describing each kernel: its launches in its node phase
 (kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
-conformance check of phase 11), its largest difference from its twin, and
-its time and the twin's at the node's shape.  The last line is
+conformance check of phase 11), its largest difference from its twin, its
+time, the twin's and the stock PyTorch route's (``library_ms``: the
+``torch.fft`` chain for A, D and E; null for B and C, which no PyTorch call
+computes) at the node's shape, and its bound there (``bound_ms``: the
+larger of its operations over 67 TFLOP/s and its bytes, each read or
+written once, over 3.35 TB/s; ``bound_by`` names which).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no result.  Without a CUDA device, or without the
 repository beside it, it fails.
@@ -74,6 +85,7 @@ repository beside it, it fails.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -113,6 +125,47 @@ LR_TWIST_TOL = 0.25  # m/s, the long-range budget of tests/test_node.py
 #: phase 12's heights: short range above 1.0 m, long range below, both ways
 LR_HEIGHTS = [1.5] * 6 + [0.8] * 7 + [1.4] * 7
 CONFORMANCE_TOL = 0.05  # px, ops/conformance.py
+#: published peaks of one H100 SXM at 700 W: float32 outside the tensor cores, HBM3
+H100_FP32_FLOPS = 67e12
+H100_BYTES_PER_S = 3.35e12
+
+
+def pc_flops(n: int) -> float:
+    """Operations of one FFT phase correlation of a real ``n x n`` pair:
+    5 N log2 N (N = n^2) for the forward complex transform of both patches
+    packed as one, half that for the inverse, and 12 a bin of the half
+    spectrum ``n (n/2 + 1)`` for the cross-power."""
+    return 7.5 * n * n * math.log2(n * n) + 12 * n * (n // 2 + 1)
+
+
+#: kernel -> (operations, bytes) of its function at a shape: each input
+#: byte read once, each output byte written once (12 B of shift and maxval
+#: a pair or window)
+WORK = {
+    # b frame pairs of q x q windows of n px, itemsize bytes a pixel
+    "phase_correlate_frames": lambda b, n, q, itemsize: (
+        b * q * q * pc_flops(n), 2 * b * (q * n) ** 2 * itemsize + 12 * b * q * q),
+    # p surfaces of n x n float32: one comparison an element
+    "peak_refine_raw": lambda p, n: (p * n * n, 4 * p * n * n + 12 * p),
+    # g cells of s x s blocks, radius r: subtract, absolute value, add a
+    # pixel and shift; float32 blocks and regions in, float32 maps out
+    "sad_search": lambda g, s, r: (
+        3 * g * (2 * r + 1) ** 2 * s * s,
+        4 * g * (s * s + (s + 2 * r) ** 2 + (2 * r + 1) ** 2)),
+    # p pairs of n x n patches
+    "phase_correlate_fullfused": lambda p, n, itemsize: (
+        p * pc_flops(n), 2 * p * n * n * itemsize + 12 * p),
+    "phase_correlate_fused": lambda p, n, itemsize: (
+        p * pc_flops(n), 2 * p * n * n * itemsize + 12 * p),
+}
+
+
+def bound(name: str, **shape) -> tuple:
+    """(least milliseconds the card could take for kernel ``name``'s work at
+    ``shape``, "operations" or "bytes", whichever bounds it)."""
+    ops, nbytes = WORK[name](**shape)
+    t_ops, t_bytes = ops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def say(msg: str) -> None:
@@ -181,12 +234,66 @@ def check_kernel(dev, n_pairs: int = 64) -> float:
     for b in (1, 3):
         bs = kernel(curr[:b].contiguous(), prev[:b].contiguous(), patch=120)[0].cpu().numpy()
         check(np.array_equal(bs, ks[:b]), f"batch {b} differs from the same pairs in batch {n_pairs}")
-    say("[3 kernel] matches twin and oracle; zero, identical, NaN, float32, B=1 and B=3 cases hold")
-    return err_twin
+    errs = [err_twin, check_kernel_cases(dev, curr[:1], prev[:1])]
+    say("[3 kernel] matches twin and oracle at every patch; zero, one-sided zero (ties), identical, "
+        "NaN, float32, masked, B=1 and B=3 cases hold")
+    return max(errs)
+
+
+def check_kernel_cases(dev, curr, prev) -> float:
+    """Phase 3, continued: kernel A against its twin and the oracle at every
+    patch it takes (multiples of 8 up to ``PCF_MAX_PATCH``, frames of q x q
+    windows, q >= 2); one-sided zero pairs at n = 120 (a surface of exact
+    zeros: every entry a tie, the minimum shifted index wins); and windows
+    holding a strong shift beyond the search radius and a weak one within
+    it.  Returns the largest shift difference from the twin."""
+    import torch
+
+    from oracle import make_accuracy_pairs
+
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        PCF_MAX_PATCH,
+        phase_correlate_frames as kernel,
+        phase_correlate_frames_ref as twin,
+    )
+
+    def on(x):
+        return torch.from_numpy(x).to(dev)
+
+    errs = []
+    for n in range(8, PCF_MAX_PATCH + 1, 8):
+        q = max(2, 240 // n)
+        prev_np, curr_np, _, oracle = make_accuracy_pairs(
+            np.random.default_rng(n), 1, size=q * n, patch=n, max_shift=min(25.0, n / 6))
+        errs.append(compare_pc(kernel, twin, on(curr_np), on(prev_np), f"A n={n} q={q}", oracle, patch=n))
+
+    zero = torch.zeros_like(curr)
+    for c, p, label in ((zero, prev, "curr zero"), (curr, zero, "prev zero")):
+        ks, km = (x.cpu().numpy() for x in kernel(c, p, patch=120))
+        ts, tm = (x.cpu().numpy() for x in twin(c, p, patch=120))
+        check(np.all(ks == -60.0) and np.all(km == 0.0), f"{label}: ties give {ks[0, 0]}, {km[0, 0]}")
+        check(np.array_equal(ks, ts) and np.array_equal(km, tm), f"{label}: kernel and twin differ")
+
+    # 2x2 windows of 120 px, each the strong (58, 0) / weak (10, 3) pair
+    tiles = [masked_pair(120, seed=20 + i, strong=(58.0, 0.0)) for i in range(4)]
+    mc, mp = (on(np.block([[t[k][0] for t in tiles[:2]], [t[k][0] for t in tiles[2:]]])[None])
+              for k in (0, 1))
+    for radius, want in ((55, (10.0, 3.0)), (60, (58.0, 0.0))):
+        errs.append(compare_pc(kernel, twin, mc, mp, f"A masked, radius {radius}", patch=120,
+                               search_radius=radius))
+        got = kernel(mc, mp, patch=120, search_radius=radius)[0].cpu().numpy()[0]
+        say(f"  A two-shift windows, radius {radius}: {got.round(3).tolist()}")
+        check(np.abs(got - np.array(want)).max() < 0.5, f"radius {radius}: peaks {got}")
+    return max(errs)
 
 
 def measure_throughput(dev) -> tuple:
-    """Phase 4.  Returns (kernel ms, twin ms) at the node's batch of 1."""
+    """Phase 4.  Kernel A at the node's batch of 1 and at the bench point
+    (B = 4096) beside its twin, the stock ``torch.fft`` route on the same
+    inputs (``phase_correlate_field(..., backend="fft")``: rfft2 twice, the
+    cross-power, irfft2, then the plain shift, mask and peak; a chain of
+    calls, not one) and the bound, and ``step_batch`` throughput.  Returns
+    (kernel ms, twin ms, library ms) at B = 1."""
     from oracle import make_accuracy_pairs
 
     import torch
@@ -196,6 +303,11 @@ def measure_throughput(dev) -> tuple:
         phase_correlate_frames as kernel,
         phase_correlate_frames_ref as twin,
     )
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import (
+        correlation_surface_raw,
+        phase_correlate_field,
+    )
+    from mrs_optic_flow_tpu_torch.ops.preprocess import patchify
 
     prev_np, curr_np, _, _ = make_accuracy_pairs(np.random.default_rng(1), 64)
     reps = BENCH_BATCH // 64
@@ -211,11 +323,31 @@ def measure_throughput(dev) -> tuple:
         f"{BENCH_BATCH / ms_batch * 1e3:.1f} frame-pairs/s (kernel)")
     say(f"  twin B={BENCH_BATCH}: {ms_twin_batch:.3f} ms = "
         f"{BENCH_BATCH / ms_twin_batch * 1e3:.1f} frame-pairs/s, peak {twin_gb:.1f} GB allocated")
-    ms_one = time_cuda(lambda: kernel(curr[:1], prev[:1], patch=120), 200)
+
+    def library(c, p):
+        return phase_correlate_field(patchify(c, 120), patchify(p, 120), backend="fft")
+
+    def fft_chain(c, p):
+        return (correlation_surface_raw(patchify(c, 120), patchify(p, 120), backend="fft"),)
+
+    out = {}
+    for b, reps_k, reps_l in ((1, 200, 50), (BENCH_BATCH, 5, 3)):
+        c, p = curr[:b].contiguous(), prev[:b].contiguous()
+        ms = time_cuda(lambda: kernel(c, p, patch=120), reps_k)
+        torch.cuda.reset_peak_memory_stats()
+        lib_ms = time_cuda(lambda: library(c, p), reps_l)
+        chain_ms = time_cuda(lambda: fft_chain(c, p), reps_l)
+        lib_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        bound_ms, by = bound("phase_correlate_frames", b=b, n=120, q=4, itemsize=1)
+        say(f"  kernel A B={b}: {ms:.4f} ms ({b * 16 / ms * 1e3:.0f} windows/s); torch.fft route "
+            f"{lib_ms:.4f} ms (surfaces alone {chain_ms:.4f} ms, peak {lib_gb:.1f} GB allocated); "
+            f"bound {bound_ms:.5f} ms ({by}), kernel at {bound_ms / ms:.2%} of it")
+        out[b] = (ms, lib_ms)
     ms_twin_one = time_cuda(lambda: twin(curr[:1], prev[:1], patch=120), 50)
-    say(f"  B=1: kernel {ms_one:.4f} ms, twin {ms_twin_one:.4f} ms")
+    say(f"  B=1: kernel {out[1][0]:.4f} ms, twin {ms_twin_one:.4f} ms")
     say("[4 throughput] done")
-    return ms_one, ms_twin_one
+    return out[1][0], ms_twin_one, out[1][1]
 
 
 PEAK_SHIFT_TOL = 1e-4  # px, kernel B against its twin
@@ -572,27 +704,30 @@ def compare_pc(kernel, twin, curr, prev, label: str, oracle=None, **kw) -> float
     return err
 
 
-def masked_pair(n: int, seed: int):
-    """One float32 ``[1, n, n]`` pair whose content moves by a strong shift
-    of (70, 0) px, beyond the search radius 55, plus a weaker copy moved by
-    (10, 3) px: masked, the peak is the weak one; unmasked, the strong one."""
+def masked_pair(n: int, seed: int, strong=(70.0, 0.0)):
+    """One float32 ``[1, n, n]`` pair whose content moves by a ``strong``
+    shift, beyond the search radius 55, plus a weaker copy moved by (10, 3)
+    px: masked, the peak is the weak one; unmasked, the strong one."""
     from oracle import fourier_shift, smooth_random_image
 
     base = smooth_random_image(np.random.default_rng(seed), n, cutoff=0.3).astype(np.float64)
-    curr = 0.7 * fourier_shift(base, 70.0, 0.0) + 0.3 * fourier_shift(base, 10.0, 3.0)
+    curr = 0.7 * fourier_shift(base, *strong) + 0.3 * fourier_shift(base, 10.0, 3.0)
     return curr[None].astype(np.float32), base[None].astype(np.float32)
 
 
 def check_fullfused_kernel(dev) -> tuple:
     """Phase 10.  Returns (max shift difference from the twin, kernel ms,
-    twin ms) at the node's shape of phase 12(b) (n = 60, P = 64)."""
+    twin ms, torch.fft route ms) at the node's shape of phase 12(b) (n = 60,
+    P = 64)."""
     import torch
 
     from mrs_optic_flow_tpu_torch.models import FftMethod, FftMethodConfig
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels
     from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
         phase_correlate_fullfused as kernel,
         phase_correlate_fullfused_ref as twin,
     )
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import phase_correlate_field
 
     def on(x):
         return torch.from_numpy(x).to(dev)
@@ -635,46 +770,57 @@ def check_fullfused_kernel(dev) -> tuple:
     check(np.abs(unmasked - [70.0, 0.0]).max() < 0.5, f"unmasked peak {unmasked}")
     err = max(errs)
 
-    # repair F2: method 4 at 480 px with patches kernel A does not take
+    # repair F2: method 4 at 480 px with large patches, each through the
+    # kernel the route rule names (160 within kernel A's bound since its FFT)
     from oracle import fourier_shift, smooth_random_image
 
     base = smooth_random_image(np.random.default_rng(3), 480, cutoff=0.3).astype(np.float64)
     frames = np.stack([fourier_shift(base, 2.5 * i, -1.5 * i) for i in range(3)]).astype(np.float32)
-    for patch in (160, 240, 100):
+    for patch, route in ((160, "phase_correlate_frames"), (240, "phase_correlate_fullfused"),
+                         (100, "phase_correlate_fullfused")):
+        wrapper = getattr(cuda_kernels, route)
         cfg = FftMethodConfig(frame_size=480, sample_point_size=patch)
         outs = []
         for d in (dev, torch.device("cpu")):
             eng = FftMethod(cfg, device=d)
             state = eng.init_state()
-            before = kernel.LAUNCHES
+            before = wrapper.LAUNCHES
             for f in frames:
                 state, res = eng.step(state, torch.from_numpy(f).to(d))
             if d == dev:
-                check(kernel.LAUNCHES - before == len(frames), f"patch {patch}: not through kernel D")
+                check(wrapper.LAUNCHES - before == len(frames), f"patch {patch}: not through {route}")
             outs.append(res.shifts_raw.cpu().numpy())
         e = float(np.abs(outs[0] - outs[1]).max())
         say(f"  FftMethod 480/{patch} ({eng.num_windows} windows of {eng.config.sample_point_size}) "
-            f"through kernel D: max|card - CPU| {e:.3g} px, shift {outs[0][0].round(3).tolist()}")
+            f"through {route}: max|card - CPU| {e:.3g} px, shift {outs[0][0].round(3).tolist()}")
         check(e <= SHIFT_TOL, f"FftMethod 480/{patch}: card and CPU differ by {e} px")
 
     c60, p60 = batches[60]
     ms = time_cuda(lambda: kernel(c60, p60), 200)
     plain_ms = time_cuda(lambda: twin(c60, p60), 50)
+    lib_ms = time_cuda(lambda: phase_correlate_field(c60, p60, backend="fft"), 50)
     c480, p480 = (x[:1].contiguous() for x in batches[480])
     ms480 = time_cuda(lambda: kernel(c480, p480), 100)
     plain480 = time_cuda(lambda: twin(c480, p480), 50)
-    say(f"  max|shift - twin| {err:.3g} px; [64, 60, 60]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; "
-        f"[1, 480, 480]: kernel {ms480:.4f} ms, twin {plain480:.4f} ms")
+    lib480 = time_cuda(lambda: phase_correlate_field(c480, p480, backend="fft"), 50)
+    b60 = bound("phase_correlate_fullfused", p=64, n=60, itemsize=1)
+    b480 = bound("phase_correlate_fullfused", p=1, n=480, itemsize=1)
+    say(f"  max|shift - twin| {err:.3g} px; [64, 60, 60]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+        f"torch.fft route {lib_ms:.4f} ms, bound {b60[0]:.5f} ms ({b60[1]}); [1, 480, 480]: kernel "
+        f"{ms480:.4f} ms, twin {plain480:.4f} ms, torch.fft route {lib480:.4f} ms, bound "
+        f"{b480[0]:.5f} ms ({b480[1]})")
     say("[10 kernel D] matches twin and oracle at n = 45 to 480; uint8, zero, NaN, tie, masked cases hold")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, lib_ms
 
 
 def check_fused_kernel(dev) -> tuple:
     """Phase 11.  Returns (E's launches in the conformance check, max shift
-    difference from the twin, kernel ms, twin ms) on ``[16, 120, 120]``."""
+    difference from the twin, kernel ms, twin ms, torch.fft route ms) on
+    ``[16, 120, 120]``."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import conformance
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import phase_correlate_field
     from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
         phase_correlate_fused as kernel,
         phase_correlate_fused_ref as twin,
@@ -705,9 +851,11 @@ def check_fused_kernel(dev) -> tuple:
 
     ms = time_cuda(lambda: kernel(c, p), 200)
     plain_ms = time_cuda(lambda: twin(c, p), 50)
-    say(f"  max|shift - twin| {err:.3g} px; [16, 120, 120]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    lib_ms = time_cuda(lambda: phase_correlate_field(c, p, backend="fft"), 50)
+    say(f"  max|shift - twin| {err:.3g} px; [16, 120, 120]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+        f"torch.fft route {lib_ms:.4f} ms")
     say("[11 kernel E] matches its twin; conformance holds on the card")
-    return launches, err, ms, plain_ms
+    return launches, err, ms, plain_ms, lib_ms
 
 
 def run_long_range_nodes(dev) -> tuple:
@@ -838,12 +986,98 @@ def check_route_constants() -> None:
         # two blocks an SM, each with the runtime's 1 KB reserve
         check(2 * (sad.sad_smem_bytes(s, r, rows) + ck.STATIC_SMEM_BYTES) <= sm_limit,
               f"kernel C's tile at S={s}: two blocks do not share an SM")
+    occupancy = {n: pcf.pcf_blocks_per_sm(n) for n in range(8, ck.PCF_MAX_PATCH + 1, 8)}
+    check(min(occupancy.values()) >= 1 and occupancy[120] >= 2,
+          f"kernel A's blocks an SM by patch: {occupancy}")
     say(f"  kernel A takes patches up to {ck.PCF_MAX_PATCH} px ({ck.pcf_smem_bytes(ck.PCF_MAX_PATCH)} B "
-        f"of {limit}); kernel C rows a tile by block size: {tiles} ({sm_limit} B an SM)")
+        f"of {limit}), blocks an SM by patch {occupancy}; kernel C rows a tile by block size: "
+        f"{tiles} ({sm_limit} B an SM)")
+
+
+def ptxas_lines(log: str) -> list:
+    """The register, shared-memory and spill lines of a ``-Xptxas=-v`` log,
+    each after its kernel's template argument (``m=15``) where it has one."""
+    import re
+
+    lines, entry = [], ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            arg = re.search(r"ILi(\d+)E", m.group(1))
+            entry = f"m={arg.group(1)}: " if arg else ""
+        elif "registers" in line or "spill" in line:
+            lines.append(entry + line.split(":", 1)[-1].strip())
+    return lines
+
+
+def compare_kernel_a(dev, baseline_source: str) -> None:
+    """``--baseline-kernel-a PATH``: kernel A from ``csrc/`` against ``PATH``,
+    another source of kernel A with the same C interface, on one card, timed
+    in turns (baseline, kernel, kernel, baseline) at B = 1 and B = 4096 on
+    the uint8 bench pairs; the two agree within SHIFT_TOL.  The direct-DFT
+    design that kernel A replaced comes from git history, written into the
+    checkout before the run:
+    ``git show 25bcf51:mrs_optic_flow_tpu_torch/csrc/phase_correlate_frames.cu``."""
+    import ctypes
+
+    import torch
+
+    from oracle import make_accuracy_pairs
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+
+    out = ck.BUILD_DIR / "libpcf_baseline.so"
+    proc = subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-o", str(out), baseline_source],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    check(proc.returncode == 0, f"baseline: nvcc failed\n{proc.stdout}")
+    for line in ptxas_lines(proc.stdout):
+        say(f"  ptxas baseline: {line}")
+    libs = {"baseline": ctypes.CDLL(str(out)), "kernel": ck.load_library("phase_correlate_frames")}
+    fn = libs["baseline"].pcf_phase_correlate_frames
+    fn.restype, fn.argtypes = ck._SIGNATURES["phase_correlate_frames"]["pcf_phase_correlate_frames"]
+
+    prev_np, curr_np, _, _ = make_accuracy_pairs(np.random.default_rng(1), 64)
+    reps = BENCH_BATCH // 64
+    prev_all = torch.from_numpy(prev_np).to(dev).repeat(reps, 1, 1)
+    curr_all = torch.from_numpy(curr_np).to(dev).repeat(reps, 1, 1)
+    tab = ck._twiddles(120, dev)
+    for b, n_reps in ((1, 200), (BENCH_BATCH, 5)):
+        c, p = curr_all[:b].contiguous(), prev_all[:b].contiguous()
+
+        def runner(lib):
+            shift = torch.empty((b, 16, 2), dtype=torch.float32, device=dev)
+            maxval = torch.empty((b, 16), dtype=torch.float32, device=dev)
+            args = (c.data_ptr(), p.data_ptr(), 1, b, 480, 480, 120, 4, 55, 3, tab.data_ptr(),
+                    shift.data_ptr(), maxval.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+            def run():
+                check(lib.pcf_phase_correlate_frames(*args) == 0, "launch failed")
+                return shift
+            return run
+
+        runs = {name: runner(lib) for name, lib in libs.items()}
+        err = float((runs["baseline"]() - runs["kernel"]()).abs().max())
+        check(err <= SHIFT_TOL, f"baseline differs by {err} px")
+        order = ["baseline", "kernel", "kernel", "baseline"]
+        times = {name: [] for name in runs}
+        for name in order:
+            times[name].append(time_cuda(runs[name], n_reps))
+        say(f"  kernel A B={b}, in turns {order}: " + "; ".join(
+            f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
+            + f"; max|shift difference| {err:.2e} px")
+    say("[compare kernel A] done")
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--baseline-kernel-a", metavar="PATH",
+                        help="time kernel A against this source of it after phases 1 and 2, "
+                             "and stop")
+    args = parser.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
@@ -865,32 +1099,40 @@ def main() -> int:
     logs = cuda_kernels.build()
     for name, log in logs.items():
         cuda_kernels.load_library(name)
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(log):
+            say(f"  ptxas {name}: {line}")
     check_route_constants()
     say(f"[2 build] {time.perf_counter() - t0:.1f} s")
 
     dev = torch.device("cuda")
+    if args.baseline_kernel_a:
+        compare_kernel_a(dev, args.baseline_kernel_a)
+        return 0
     err_a = check_kernel(dev)
-    ms_a, plain_a = measure_throughput(dev)
+    ms_a, plain_a, lib_a = measure_throughput(dev)
     launches_a = run_node(dev)
     check(launches_a >= N_FRAMES - 1, f"{launches_a} kernel launches for {N_FRAMES - 1} processed frames")
     err_b, ms_b, plain_b = check_peak_kernel(dev)
     err_c, ms_c, plain_c = check_sad_kernel(dev)
     launches_b = run_scale_rotation_node(dev)
     launches_c = run_block_matching_nodes(dev)
-    err_d, ms_d, plain_d = check_fullfused_kernel(dev)
-    launches_e, err_e, ms_e, plain_e = check_fused_kernel(dev)
+    err_d, ms_d, plain_d, lib_d = check_fullfused_kernel(dev)
+    launches_e, err_e, ms_e, plain_e, lib_e = check_fused_kernel(dev)
     launches_d, _ = run_long_range_nodes(dev)
     check_sad_tiled(dev)
 
+    # each kernel at the shape its row times: (launches, error, ms, plain
+    # ms, library ms or None, the bound at that shape)
     rows = {
-        "phase_correlate_frames": (launches_a, err_a, ms_a, plain_a),
-        "peak_refine_raw": (launches_b, err_b, ms_b, plain_b),
-        "sad_search": (launches_c, err_c, ms_c, plain_c),
-        "phase_correlate_fullfused": (launches_d, err_d, ms_d, plain_d),
-        "phase_correlate_fused": (launches_e, err_e, ms_e, plain_e),
+        "phase_correlate_frames": (launches_a, err_a, ms_a, plain_a, lib_a,
+                                   bound("phase_correlate_frames", b=1, n=120, q=4, itemsize=1)),
+        "peak_refine_raw": (launches_b, err_b, ms_b, plain_b, None,
+                            bound("peak_refine_raw", p=1, n=480)),
+        "sad_search": (launches_c, err_c, ms_c, plain_c, None, bound("sad_search", g=9, s=120, r=21)),
+        "phase_correlate_fullfused": (launches_d, err_d, ms_d, plain_d, lib_d,
+                                      bound("phase_correlate_fullfused", p=64, n=60, itemsize=1)),
+        "phase_correlate_fused": (launches_e, err_e, ms_e, plain_e, lib_e,
+                                  bound("phase_correlate_fused", p=16, n=120, itemsize=4)),
     }
     say(json.dumps({"kernels": [{
         "name": name,
@@ -901,7 +1143,10 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-    } for name, (launches, err, ms, plain_ms) in rows.items()]}))
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib_ms,
+    } for name, (launches, err, ms, plain_ms, lib_ms, (bound_ms, bound_by)) in rows.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -18,7 +18,8 @@
 // 2 GFLOP for one 480 px pair, 4 MFLOP for a 60 px pair), and for the large
 // patches the capacity of shared memory: one 480 px half spectrum is
 // 480 x 241 complex, 925 KB, four times the 227 KB a block may hold, so kernel
-// A's one-block-per-patch design ends at n = 136.  This kernel is staged
+// A's one-block-per-patch design ends at n = 168 (one n x n complex buffer,
+// n a multiple of 8).  This kernel is staged
 // instead: four tiled launches over (output tile, matrix), dft_stages.cuh,
 //   1. rows_forward_real: both patches' real row pass -> half spectra T1, T2;
 //   2. cols_dft<true>: the complex column pass of both, the cross-power and

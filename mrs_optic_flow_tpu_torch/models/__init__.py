@@ -10,9 +10,10 @@ from mrs_optic_flow_tpu_torch.models.scale_rotation import (  # noqa: F401
     ScaleRotationConfig,
     ScaleRotationEstimator,
 )
+from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
-def make_engine(method: int, *, device="cpu", **kwargs) -> FlowEngine:
+def make_engine(method: int, *, device=DEFAULT_DEVICE, **kwargs) -> FlowEngine:
     """Method-id dispatch (``src/optic_flow.cpp:952-1014``): 3 = block
     matching, 4 = FFT, 5 = spaced block matching."""
     if method == 3:

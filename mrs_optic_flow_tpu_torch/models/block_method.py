@@ -26,6 +26,7 @@ from mrs_optic_flow_tpu_torch.ops.block_matching import (
     refine_subpixel,
     sad_min_flow,
 )
+from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +46,9 @@ class SadEngine(FlowEngine):
     static origins, each searched over ``+-scan_radius`` in the previous
     frame, and a float32 carry of the previous frame."""
 
-    def __init__(self, config, origins: np.ndarray, *, device="cpu"):
+    def __init__(self, config, origins: np.ndarray, *, device=DEFAULT_DEVICE):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._origins = origins
         self.num_cells = len(origins)
 
@@ -82,7 +83,7 @@ class SadEngine(FlowEngine):
 
 
 class BlockMethod(SadEngine):
-    def __init__(self, config: BlockMethodConfig = BlockMethodConfig(), *, device="cpu"):
+    def __init__(self, config: BlockMethodConfig = BlockMethodConfig(), *, device=DEFAULT_DEVICE):
         c = config
         #: maxSamplesSide = (frameSize - 2R) / samplePointSize (src/BlockMethod.cpp:12)
         self.grid_side = (c.frame_size - 2 * c.scan_radius) // c.sample_point_size

@@ -20,6 +20,7 @@ import torch
 from mrs_optic_flow_tpu_torch.models.base import FlowResult
 from mrs_optic_flow_tpu_torch.models.block_method import SadEngine
 from mrs_optic_flow_tpu_torch.ops.block_matching import histogram_vote, sad_min_flow
+from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +34,7 @@ class FastSpacedBMConfig:
 
 
 class FastSpacedBM(SadEngine):
-    def __init__(self, config: FastSpacedBMConfig = FastSpacedBMConfig(), *, device="cpu"):
+    def __init__(self, config: FastSpacedBMConfig = FastSpacedBMConfig(), *, device=DEFAULT_DEVICE):
         c = config
         pitch = c.sample_point_size + c.step_size
         #: grid = (cols - 2R) / pitch (src/FastSpacedBMMethod_OCL.cpp:88)

@@ -44,6 +44,7 @@ from mrs_optic_flow_tpu_torch.ops.phase_correlate import (
     correlation_surface_raw,
 )
 from mrs_optic_flow_tpu_torch.ops.preprocess import patchify, quantize_u8, resize_by
+from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +91,10 @@ class FftMethodConfig:
 class FftMethod(FlowEngine):
     """Multi-patch phase-correlation engine on ``device``."""
 
-    def __init__(self, config: FftMethodConfig = FftMethodConfig(), *, device="cpu"):
+    def __init__(self, config: FftMethodConfig = FftMethodConfig(), *, device=DEFAULT_DEVICE):
         self.config = config.normalized()
         c = self.config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         #: grid side (sqNum, src/FftMethod.cpp:1719)
         self.sq_num = c.frame_size // c.sample_point_size
         self.num_windows = self.sq_num * self.sq_num

@@ -29,6 +29,7 @@ from mrs_optic_flow_tpu_torch.ops.cuda_kernels import peak_refine_raw, peak_refi
 from mrs_optic_flow_tpu_torch.ops.logpolar import logpolar
 from mrs_optic_flow_tpu_torch.ops.phase_correlate import correlation_surface_raw
 from mrs_optic_flow_tpu_torch.ops.preprocess import quantize_u8
+from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class ScaleRotState(NamedTuple):
@@ -73,13 +74,13 @@ class ScaleRotationConfig:
 
 
 class ScaleRotationEstimator:
-    def __init__(self, config: ScaleRotationConfig = ScaleRotationConfig(), *, device="cpu"):
+    def __init__(self, config: ScaleRotationConfig = ScaleRotationConfig(), *, device=DEFAULT_DEVICE):
         if config.backend not in ("dft", "fft"):
             raise ValueError(f"unknown backend {config.backend!r} (expected 'fft' or 'dft')")
         if config.interp not in ("lanczos4", "bilinear"):
             raise ValueError(f"unknown interp {config.interp!r} (expected 'lanczos4' or 'bilinear')")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         r = config.lp_res / config.resolution
         #: effective optimM at the log-polar resolution
         self.m_eff = config.magnitude * r

@@ -78,6 +78,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "phase_correlate_frames": {
         "pcf_smem_bytes": (_LL, [_I]),
+        "pcf_blocks_per_sm": (_I, [_I]),
         # curr, prev, is_u8, batch, height, width, n, q, radii, tab, shift,
         # maxval, stream
         "pcf_phase_correlate_frames": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -181,6 +182,7 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
 STATIC_SMEM_BYTES = 1024
 
 
+@functools.lru_cache(maxsize=None)
 def _smem_limit(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
@@ -201,14 +203,15 @@ H100_SMEM_OPTIN_BYTES = 232_448
 
 
 def pcf_smem_bytes(n: int) -> int:
-    """Kernel A's dynamic shared memory for patch ``n``: three ``n x (n/2 +
-    1)`` complex buffers and the ``n``-entry twiddle table, as
-    ``pcf_smem_bytes`` in ``csrc/phase_correlate_frames.cu`` computes it."""
-    return (3 * n * (n // 2 + 1) + n) * 8
+    """Kernel A's dynamic shared memory for patch ``n``: one ``n x n``
+    complex float32 buffer, as ``pcf_smem_bytes`` in
+    ``csrc/phase_correlate_frames.cu`` computes it (115,200 B at n = 120,
+    so two blocks share an SM)."""
+    return n * n * 8
 
 
-#: the largest patch kernel A takes on an H100: 137 (227,968 B); with the
-#: engines' multiple-of-8 rule, 136
+#: the largest patch whose buffer fits a block of an H100: 170 (231,200 B);
+#: with the multiple-of-8 rule, 168 (the kernel's largest, m = 21)
 PCF_MAX_PATCH = max(
     n for n in range(1, 1024) if pcf_smem_bytes(n) + STATIC_SMEM_BYTES <= H100_SMEM_OPTIN_BYTES
 )
@@ -216,20 +219,22 @@ PCF_MAX_PATCH = max(
 
 def frames_kernel_takes(patch: int) -> bool:
     """The route rule of the engines: kernel A for a patch that is a
-    multiple of 8 (the JAX engine's rule for its frames kernel) and within
-    A's shared memory; kernel D for every other patch.  A constant, so that
-    the CPU and the card route alike."""
+    multiple of 8 (the JAX engine's rule for its frames kernel, and the
+    radix-8 step of A's FFT) and within A's shared memory; kernel D for
+    every other patch.  A constant, so that the CPU and the card route
+    alike."""
     return patch % 8 == 0 and patch <= PCF_MAX_PATCH
 
 
 @functools.lru_cache(maxsize=None)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     """``[n, 2]`` float32 table ``(cos, sin)(-2 pi m / n)``: row 1 of
-    :func:`_dft_matrices` (built in float64, cast to float32).  The kernels
-    read entry ``(j, k)`` of the DFT matrix as ``m = j*k mod n``; the
+    :func:`_dft_matrices` (built in float64, cast to float32).  Kernels D
+    and E read entry ``(j, k)`` of the DFT matrix as ``m = j*k mod n``; the
     reduced angle differs from the float64 matrix entry by at most 1.2e-13
     absolute for n <= 136 and 5.9e-13 for n <= 480 (the float32 tables by
-    at most 5.1e-13)."""
+    at most 5.1e-13).  Kernel A's FFT reads the twiddle ``W_n^(j1 k2)`` at
+    ``j1 * k2 < n`` and ``W_m^(j1 k1)`` at ``8 * (j1 k1 mod m)``."""
     c, s = _dft_matrices(n)
     tab = np.ascontiguousarray(np.stack([c[1], s[1]], axis=-1))
     return torch.from_numpy(tab).to(device)
@@ -276,8 +281,9 @@ def phase_correlate_frames(
     ``i + q*j``.
 
     CPU tensors run :func:`phase_correlate_frames_ref`.  CUDA tensors launch
-    ``csrc/phase_correlate_frames.cu`` on the current stream; each launch
-    adds one to ``phase_correlate_frames.LAUNCHES``.
+    ``csrc/phase_correlate_frames.cu`` on the current stream, one block a
+    window, for a patch that :func:`frames_kernel_takes`; each launch adds
+    one to ``phase_correlate_frames.LAUNCHES``.
     """
     if curr.device.type == "cpu" and prev.device.type == "cpu":
         return phase_correlate_frames_ref(
@@ -291,8 +297,13 @@ def phase_correlate_frames(
         raise ValueError(f"expected two [B, H, W] batches, got {tuple(curr.shape)} and {tuple(prev.shape)}")
     if search_radius < 0 or centroid_radius < 0:
         raise ValueError("radii must be non-negative")
+    if not frames_kernel_takes(patch):
+        raise ValueError(f"kernel A takes patches that are multiples of 8 up to {PCF_MAX_PATCH}, "
+                         f"not {patch}")
     b, h, w = curr.shape
     q = _grid(curr.shape, patch)
+    # the kernel reads 4 pixels at a time: 16-byte aligned frames
+    curr, prev = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (curr, prev))
     lib = load_library("phase_correlate_frames")
     _smem_fits(lib.pcf_smem_bytes(patch), curr.device, f"patch {patch}")
 

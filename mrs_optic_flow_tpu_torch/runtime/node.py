@@ -33,12 +33,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from mrs_optic_flow_tpu.utils.quat_np import (
-    np_quat_from_rpy,
-    np_quat_inverse,
-    np_quat_multiply,
-    np_rpy_from_quat,
-)
 from mrs_optic_flow_tpu_torch.config import NodeConfig
 from mrs_optic_flow_tpu_torch.convert import node_state_from_numpy
 from mrs_optic_flow_tpu_torch.filters.allsac import allsac_mean, point_mean, ransac_mean
@@ -69,6 +63,13 @@ from mrs_optic_flow_tpu_torch.runtime.msgs import (
     TwistWithCovarianceStamped,
 )
 from mrs_optic_flow_tpu_torch.runtime.profiler import Profiler, ThrottledLog
+from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from mrs_optic_flow_tpu_torch.utils.quat_np import (
+    np_quat_from_rpy,
+    np_quat_inverse,
+    np_quat_multiply,
+    np_rpy_from_quat,
+)
 
 
 def _check_supported(c: NodeConfig) -> None:
@@ -87,7 +88,7 @@ class OpticFlowNode:
         self,
         config: Optional[NodeConfig] = None,
         *,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         publish: Optional[Callable[[str, object], None]] = None,
         log: Callable[[str], None] = print,
         uav_frame: str = "fcu",
@@ -95,16 +96,18 @@ class OpticFlowNode:
         enable_profiler: bool = True,
         transform_provider: Optional[Callable[[], object]] = None,
     ):
-        """``device``: where the frame chain runs (``"cuda"`` launches the
-        hand-written kernels).  ``transform_provider``: optional zero-argument
-        callable returning the camera->base quaternion ``[x, y, z, w]``, a
+        """``device``: where the frame chain runs; the card (``"cuda"``,
+        which launches the hand-written kernels) unless the caller passes
+        ``"cpu"``, and without a CUDA device the default raises.
+        ``transform_provider``: optional zero-argument callable returning
+        the camera->base quaternion ``[x, y, z, w]``, a
         ``(c2b_quat, cam_yaw)`` tuple, or ``None``; polled at most once per
         second from the image path until it succeeds (the reference's 1 Hz
         ``timerTf``, ``src/optic_flow.cpp:1165-1243``)."""
         self.config = config or NodeConfig()
         c = self.config
         _check_supported(c)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.publish = publish or (lambda topic, msg: None)
         self.log = log
         self.log_throttled = ThrottledLog(1.0, log)

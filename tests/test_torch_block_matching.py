@@ -142,7 +142,7 @@ ENGINES = {
 def test_engine_step_and_batch_match_jax(name, use_pallas):
     jcls, jcfg, tcls, tcfg, extra = ENGINES[name]
     kw = dict(SMALL, use_pallas=use_pallas, **extra)
-    jeng, teng = jcls(jcfg(**kw)), tcls(tcfg(**kw))
+    jeng, teng = jcls(jcfg(**kw)), tcls(tcfg(**kw), device="cpu")
     assert teng.grid_side == jeng.grid_side and teng.num_cells == jeng.num_cells
     frames = _frames(4, [(0, 0), (3, -5), (1, -2), (-4, 2)])
     jst, tst = jeng.init_state(), teng.init_state()
@@ -163,11 +163,11 @@ def test_engine_step_and_batch_match_jax(name, use_pallas):
 
 def test_engines_recover_shifts_and_flat_frames():
     frames = _frames(5, [(0, 0), (3, -5)])
-    eng = BlockMethod(BlockMethodConfig(**SMALL))
+    eng = BlockMethod(BlockMethodConfig(**SMALL), device="cpu")
     st, _ = eng.step(eng.init_state(), torch.from_numpy(frames[0]))
     _, res = eng.step(st, torch.from_numpy(frames[1]))
     assert np.all(np.abs(to_numpy(res.shifts)[0] - [-5, 3]) <= 0.5)
-    fast = FastSpacedBM(FastSpacedBMConfig(**SMALL, step_size=8))
+    fast = FastSpacedBM(FastSpacedBMConfig(**SMALL, step_size=8), device="cpu")
     flat = torch.full((96, 96), 128.0)
     st, _ = fast.step(fast.init_state(), flat)
     _, res = fast.step(st, flat)
@@ -175,7 +175,7 @@ def test_engines_recover_shifts_and_flat_frames():
 
 
 def test_make_engine_dispatch():
-    assert isinstance(make_engine(3, **SMALL), BlockMethod)
-    assert isinstance(make_engine(5, **SMALL, step_size=8), FastSpacedBM)
+    assert isinstance(make_engine(3, **SMALL, device="cpu"), BlockMethod)
+    assert isinstance(make_engine(5, **SMALL, step_size=8, device="cpu"), FastSpacedBM)
     with pytest.raises(ValueError, match="invalid method"):
-        make_engine(6)
+        make_engine(6, device="cpu")

@@ -40,7 +40,7 @@ def _assert_gated_equal(ts, js):
 def test_step_stream_matches_jax(quantize_8bit):
     kw = dict(frame_size=256, sample_point_size=64, quantize_8bit=quantize_8bit,
               max_pixel_speed=MAX_SPEED)
-    jeng, teng = JaxFftMethod(JaxConfig(**kw)), FftMethod(FftMethodConfig(**kw))
+    jeng, teng = JaxFftMethod(JaxConfig(**kw)), FftMethod(FftMethodConfig(**kw), device="cpu")
     jst, tst = jeng.init_state(), teng.init_state()
     gated = 0
     for i, frame in enumerate(_stream()):
@@ -67,7 +67,8 @@ def test_step_batch_matches_jax():
     curr = np.stack(frames[1:])
     kw = dict(frame_size=256, sample_point_size=64, max_pixel_speed=MAX_SPEED)
     jres = JaxFftMethod(JaxConfig(**kw)).step_batch(jnp.asarray(prev), jnp.asarray(curr))
-    tres = FftMethod(FftMethodConfig(**kw)).step_batch(torch.from_numpy(prev), torch.from_numpy(curr))
+    tres = FftMethod(FftMethodConfig(**kw), device="cpu").step_batch(
+        torch.from_numpy(prev), torch.from_numpy(curr))
     ts = to_numpy(tres.shifts)
     assert ts.shape == (3, 16, 2)
     _assert_gated_equal(ts, to_numpy(jres.shifts))
@@ -79,7 +80,7 @@ def test_other_routes_match_jax(backend, use_pallas):
     frames = _stream(seed=2)
     kw = dict(frame_size=256, sample_point_size=64, max_pixel_speed=MAX_SPEED, backend=backend,
               use_pallas=use_pallas)
-    jeng, teng = JaxFftMethod(JaxConfig(**kw)), FftMethod(FftMethodConfig(**kw))
+    jeng, teng = JaxFftMethod(JaxConfig(**kw)), FftMethod(FftMethodConfig(**kw), device="cpu")
     jst, tst = jeng.init_state(), teng.init_state()
     for frame in frames:
         jst, jres = jeng.step(jst, jnp.asarray(frame))
@@ -94,7 +95,7 @@ def test_other_routes_match_jax(backend, use_pallas):
 
 
 def test_set_im_prev_and_init_state():
-    eng = FftMethod(FftMethodConfig(frame_size=128, sample_point_size=64))
+    eng = FftMethod(FftMethodConfig(frame_size=128, sample_point_size=64), device="cpu")
     st = eng.init_state()
     assert st.first is True and st.prev.dtype == torch.uint8 and st.prev.shape == (128, 128)
     assert not st.prev.any()
@@ -109,17 +110,17 @@ def test_config_normalization_matches_jax(frame_size, patch):
     ours = FftMethodConfig(frame_size=frame_size, sample_point_size=patch).normalized()
     theirs = JaxConfig(frame_size=frame_size, sample_point_size=patch).normalized()
     assert (ours.frame_size, ours.sample_point_size) == (theirs.frame_size, theirs.sample_point_size)
-    assert FftMethod(ours).sq_num == JaxFftMethod(theirs).sq_num
+    assert FftMethod(ours, device="cpu").sq_num == JaxFftMethod(theirs).sq_num
 
 
 def test_tpu_knobs_accepted_and_ignored():
     names = {f.name for f in dataclasses.fields(JaxConfig)}
     assert names == {f.name for f in dataclasses.fields(FftMethodConfig)}
     frame = torch.from_numpy(_stream()[1])
-    plain = FftMethod(FftMethodConfig(frame_size=256, sample_point_size=64))
+    plain = FftMethod(FftMethodConfig(frame_size=256, sample_point_size=64), device="cpu")
     knobs = FftMethod(FftMethodConfig(frame_size=256, sample_point_size=64, mxu_passes=1,
                                       half_spectrum=False, bands_per_step=2,
-                                      pairs_per_step=2, band_stack=2))
+                                      pairs_per_step=2, band_stack=2), device="cpu")
     a = plain.step(plain.init_state(), frame)[1].shifts
     b = knobs.step(knobs.init_state(), frame)[1].shifts
     assert torch.equal(a, b)
@@ -130,12 +131,12 @@ def test_unported_routes_raise():
     (tests/test_torch_long_range.py); what the JAX engine refuses, the port
     refuses."""
     with pytest.raises(ValueError, match="backend"):
-        FftMethod(FftMethodConfig(backend="nope"))
-    eng = FftMethod(FftMethodConfig(frame_size=128, sample_point_size=64))
+        FftMethod(FftMethodConfig(backend="nope"), device="cpu")
+    eng = FftMethod(FftMethodConfig(frame_size=128, sample_point_size=64), device="cpu")
     _, res = eng.step_long_range(eng.init_state(), torch.zeros((128, 128)))
     assert tuple(res.shifts.shape) == (eng.num_windows_lr, 2) == (1, 2)
     with pytest.raises(ValueError, match="grid"):  # a frame that is no grid of 64 px patches
         eng.step(eng.init_state(), torch.zeros((100, 100)))
-    assert isinstance(make_engine(4, frame_size=128, sample_point_size=64), FftMethod)
+    assert isinstance(make_engine(4, frame_size=128, sample_point_size=64, device="cpu"), FftMethod)
     with pytest.raises(ValueError, match="invalid method"):
-        make_engine(7)
+        make_engine(7, device="cpu")

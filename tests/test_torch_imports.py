@@ -35,10 +35,66 @@ def test_port_imports_without_jax_yaml_cv2():
     assert proc.returncode == 0, proc.stderr
 
 
+#: an import of jax or of the JAX package (``mrs_optic_flow_tpu``, not the port)
+FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(from\s+|import\s+([\w.]+(\s+as\s+\w+)?\s*,\s*)*)(jax|mrs_optic_flow_tpu)(?!\w)",
+    re.MULTILINE,
+)
+
+
 def test_port_sources_never_import_jax():
-    jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.MULTILINE)
+    """Neither JAX nor anything of the JAX package, not even a numpy-only
+    module, in the port or in ``chip_smoke.py``."""
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
-        assert not jax_import.search(path.read_text()), path
+        assert not FORBIDDEN_IMPORT.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("line,forbidden", [
+    ("import jax", True),
+    ("import jax.numpy as jnp", True),
+    ("from jax import lax", True),
+    ("import mrs_optic_flow_tpu", True),
+    ("    import mrs_optic_flow_tpu.utils.quat_np as q", True),
+    ("from mrs_optic_flow_tpu.utils.quat_np import np_quat_inverse", True),
+    ("from mrs_optic_flow_tpu import utils", True),
+    ("import numpy, mrs_optic_flow_tpu", True),
+    ("import jaxlib", False),
+    ("import mrs_optic_flow_tpu_torch", False),
+    ("from mrs_optic_flow_tpu_torch.ops import cuda_kernels", False),
+    ("from mrs_optic_flow_tpu_torch import models", False),
+    ('    "mrs_optic_flow_tpu/ops/pallas_kernels.py:270"', False),
+])
+def test_forbidden_import_pattern(line, forbidden):
+    """The pattern of :func:`test_port_sources_never_import_jax` catches the
+    JAX package in every import form and passes the port's own package."""
+    assert bool(FORBIDDEN_IMPORT.search(line)) is forbidden
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("np_quat_from_rpy", 3),
+    ("np_quat_inverse", (4,)),
+    ("np_quat_multiply", ((4,), (4,))),
+    ("np_rpy_from_quat", (4,)),
+])
+def test_quat_np_copy_bit_identical(fn, args):
+    """The port's copy of the node's quaternion helpers against the JAX
+    package's module on seeded inputs, gimbal-lock quaternions included."""
+    from mrs_optic_flow_tpu.utils import quat_np as theirs
+    from mrs_optic_flow_tpu_torch.utils import quat_np as ours
+
+    rng = np.random.default_rng(42)
+    for trial in range(200):
+        if args == 3:
+            inputs = tuple(float(v) for v in rng.uniform(-np.pi, np.pi, 3))
+        else:
+            inputs = tuple(rng.normal(size=shape) for shape in args)
+            if fn == "np_rpy_from_quat" and trial < 4:
+                # pitch +-90 deg: the getRPY branch at |sin(pitch)| = 1
+                s = np.sqrt(0.5)
+                inputs = (np.array([[0.0, s, 0.0, s], [0.0, -s, 0.0, s],
+                                    [s, 0.0, s, 0.0], [0.0, 0.0, 0.0, 1.0]][trial]),)
+        got, want = getattr(ours, fn)(*inputs), getattr(theirs, fn)(*inputs)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 @pytest.mark.parametrize(

@@ -51,7 +51,7 @@ K = np.array([[420.0, 0.0, 376.0], [0.0, 410.0, 240.0], [0.0, 0.0, 1.0]])
 
 
 def _engines(**kw):
-    return JaxFftMethod(JaxConfig(**kw)), FftMethod(FftMethodConfig(**kw))
+    return JaxFftMethod(JaxConfig(**kw)), FftMethod(FftMethodConfig(**kw), device="cpu")
 
 
 def _pair(seed, size, roll, cutoff=0.4):
@@ -162,12 +162,15 @@ def test_unaligned_patch_uint8_bit_identical():
 
 @pytest.mark.parametrize("patch,windows", [(160, 9), (240, 4), (100, 1)])
 def test_patches_kernel_a_refuses_match_jax(patch, windows):
-    """Repair F2: patches beyond kernel A's shared memory (160, 240) and a
-    patch that does not divide the frame (100 -> one 480 px window) take
-    kernel D's route, in both modes."""
+    """Repair F2: patches beyond kernel A's shared memory (240) and a patch
+    that does not divide the frame (100 -> one 480 px window) take kernel
+    D's route, in both modes.  Patch 160 took D's route until kernel A's
+    one-buffer FFT raised A's bound to 170; it now takes A's.  Every patch
+    matches the JAX engine."""
     jeng, teng = _engines(frame_size=480, sample_point_size=patch)
     assert teng.num_windows == windows
-    assert not cuda_kernels.frames_kernel_takes(teng.config.sample_point_size)
+    takes_a = {160: True, 240: False, 100: False}[patch]
+    assert cuda_kernels.frames_kernel_takes(teng.config.sample_point_size) is takes_a
     frames = list(_pair(5, 480, (6, -10), cutoff=0.3))
     tres, _ = _stream_both(jeng, teng, frames, long_range=False)
     assert np.abs(np.nanmedian(to_numpy(tres.shifts), axis=0) - [-10.0, 6.0]).max() < 0.3
@@ -177,11 +180,11 @@ def test_patches_kernel_a_refuses_match_jax(patch, windows):
 def test_route_rule():
     """Kernel A for multiples of 8 up to its shared-memory bound, kernel D
     for the rest; the bound is A's formula against 232,448 B."""
-    assert cuda_kernels.PCF_MAX_PATCH == 137
-    assert cuda_kernels.pcf_smem_bytes(137) + cuda_kernels.STATIC_SMEM_BYTES <= 232_448
-    assert cuda_kernels.pcf_smem_bytes(138) + cuda_kernels.STATIC_SMEM_BYTES > 232_448
+    assert cuda_kernels.PCF_MAX_PATCH == 170
+    assert cuda_kernels.pcf_smem_bytes(170) + cuda_kernels.STATIC_SMEM_BYTES <= 232_448
+    assert cuda_kernels.pcf_smem_bytes(171) + cuda_kernels.STATIC_SMEM_BYTES > 232_448
     takes = [n for n in range(1, 481) if cuda_kernels.frames_kernel_takes(n)]
-    assert takes == list(range(8, 137, 8))
+    assert takes == list(range(8, 169, 8))
 
 
 # --------------------------------------------------------------------------- #
@@ -304,7 +307,8 @@ def _run_both(case):
     events = _events(tracker=of["long_range_mode"] == "takeoff_based")
     published = []
     config = NodeConfig(frame_size=frame, sample_point_size=patch, **of, **tpu, **top)
-    node = OpticFlowNode(config, publish=lambda t, m: published.append((t, m)), log=lambda s: None)
+    node = OpticFlowNode(config, device="cpu", publish=lambda t, m: published.append((t, m)),
+                         log=lambda s: None)
     node.set_transforms((0.0, 0.0, 0.0, 1.0))
     ours = _drive(node, events, published)
     published_j = []
@@ -354,7 +358,7 @@ def test_long_range_frames_draw_no_random_numbers():
     generator is where it started after a stream."""
     published = []
     node = OpticFlowNode(NodeConfig(frame_size=256, sample_point_size=64, long_range_mode="always_on"),
-                         publish=lambda t, m: published.append((t, m)), log=lambda s: None)
+                         publish=lambda t, m: published.append((t, m)), log=lambda s: None, device="cpu")
     node.set_transforms((0.0, 0.0, 0.0, 1.0))
     state = node._gen.get_state()
     ours = _drive(node, _events(tracker=False)[:13], published)
@@ -365,7 +369,7 @@ def test_long_range_frames_draw_no_random_numbers():
 def test_warmup_runs_both_modes_and_leaves_the_stream_untouched():
     published = []
     node = OpticFlowNode(NodeConfig(frame_size=240, sample_point_size=60, long_range_mode="height_based"),
-                         publish=lambda t, m: published.append((t, m)), log=lambda s: None)
+                         publish=lambda t, m: published.append((t, m)), log=lambda s: None, device="cpu")
     node.on_camera_info(SyntheticScene(width=320, height_px=288).camera_info())
     steps = []
     for name in ("step", "step_long_range"):
@@ -389,7 +393,7 @@ def test_warmup_runs_both_modes_and_leaves_the_stream_untouched():
 )
 def test_resolve_long_range_policies(mode, height, tracker, expect):
     node = OpticFlowNode(NodeConfig(frame_size=128, sample_point_size=32, long_range_mode=mode,
-                                    takeoff_height=1.0), log=lambda s: None)
+                                    takeoff_height=1.0), log=lambda s: None, device="cpu")
     node.on_height(Float64Stamped(stamp=1.0, value=height))
     if tracker is not None:
         node.on_tracker_status(TrackerStatus(active_tracker=tracker))

@@ -68,7 +68,7 @@ def _drive(node, events, published, checkpoint=None):
 
 def _port_node(published, config=None):
     node = OpticFlowNode(config or NodeConfig(frame_size=256, sample_point_size=64),
-                         publish=lambda t, m: published.append((t, m)), log=lambda s: None)
+                         publish=lambda t, m: published.append((t, m)), log=lambda s: None, device="cpu")
     node.set_transforms((0.0, 0.0, 0.0, 1.0))
     return node
 
@@ -144,7 +144,7 @@ def test_checkpoint_round_trip_and_geometry_check(tmp_path):
 )
 def test_unsupported_configs_raise(fields):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OpticFlowNode(NodeConfig(**fields))
+        OpticFlowNode(NodeConfig(**fields), device="cpu")
 
 
 def test_warmup_leaves_the_stream_untouched():

@@ -92,7 +92,8 @@ def _after_checkpoint(events):
 
 
 def _port_node(config, published):
-    node = OpticFlowNode(config, publish=lambda t, m: published.append((t, m)), log=lambda s: None)
+    node = OpticFlowNode(config, device="cpu", publish=lambda t, m: published.append((t, m)),
+                         log=lambda s: None)
     node.set_transforms((0.0, 0.0, 0.0, 1.0))
     return node
 
@@ -261,6 +262,6 @@ def test_block_matching_node_matches_jax(method, filter_method, scale_rotation):
      ("long_range_mode", "height_based")],
 )
 def test_newly_supported_configs_construct(field, value):
-    node = OpticFlowNode(NodeConfig(**{field: value}))
+    node = OpticFlowNode(NodeConfig(**{field: value}), device="cpu")
     assert (node.scale_rotation_estimator is not None) == (field == "scale_rotation")
     assert to_numpy(node.flow_state.prev).shape == (480, 480)

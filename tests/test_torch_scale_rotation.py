@@ -94,7 +94,8 @@ def test_step_stream_matches_jax(quantize_8bit):
     f0 = _texture(n, seed=3)
     frames = [f0, _warp(f0, 6.0, 1.0), _warp(f0, 6.0, 1.05), _warp(f0, 2.0, 1.05)]
     kw = dict(resolution=n, magnitude=12.0, quantize_8bit=quantize_8bit)
-    jest, test = JaxEstimator(JaxConfig(**kw)), ScaleRotationEstimator(ScaleRotationConfig(**kw))
+    jest = JaxEstimator(JaxConfig(**kw))
+    test = ScaleRotationEstimator(ScaleRotationConfig(**kw), device="cpu")
     jst, tst = jest.init_state(), test.init_state()
     assert tst.first and tst.prev_logpolar.dtype == (torch.uint8 if quantize_8bit else torch.float32)
     for i, f in enumerate(frames):
@@ -119,7 +120,8 @@ def test_batch_modes_match_jax():
     prev = np.stack([f0, f0, _warp(f0, 4.0, 1.0)])
     curr = np.stack([_warp(f0, 4.0, 1.0), _warp(f0, 0.0, 1.06), _warp(f0, 8.0, 1.03)])
     kw = dict(resolution=n, magnitude=12.0)
-    jest, test = JaxEstimator(JaxConfig(**kw)), ScaleRotationEstimator(ScaleRotationConfig(**kw))
+    jest = JaxEstimator(JaxConfig(**kw))
+    test = ScaleRotationEstimator(ScaleRotationConfig(**kw), device="cpu")
     jres = jest.step_batch(jnp.asarray(prev), jnp.asarray(curr))
     tres = test.step_batch(torch.from_numpy(prev), torch.from_numpy(curr))
     np.testing.assert_allclose(to_numpy(tres.scale), np.asarray(jres.scale), atol=DECODE_TOL)
@@ -138,7 +140,8 @@ def test_batch_modes_match_jax():
 
 def test_lp_resolution_rescales_the_decode():
     kw = dict(resolution=128, magnitude=20.0, lp_resolution=64)
-    jest, test = JaxEstimator(JaxConfig(**kw)), ScaleRotationEstimator(ScaleRotationConfig(**kw))
+    jest = JaxEstimator(JaxConfig(**kw))
+    test = ScaleRotationEstimator(ScaleRotationConfig(**kw), device="cpu")
     assert (test.m_eff, test.ky) == (jest.m_eff, jest.ky) == (10.0, 64 / 360.0)
     f0 = _texture(128, seed=5)
     prev, curr = np.stack([f0]), np.stack([_warp(f0, 14.0, 1.0)])
@@ -152,7 +155,8 @@ def test_decode_gate_matches_jax():
     """The first-frame gate, a peak out of range (|pt.x| > n/2, both of the
     reference's checks test pt.x) and a NaN peak all give (1, 0)."""
     kw = dict(resolution=64, magnitude=12.0)
-    jest, test = JaxEstimator(JaxConfig(**kw)), ScaleRotationEstimator(ScaleRotationConfig(**kw))
+    jest = JaxEstimator(JaxConfig(**kw))
+    test = ScaleRotationEstimator(ScaleRotationConfig(**kw), device="cpu")
     shift = np.array([[3.5, -2.25], [-40.0, 1.0], [1.0, 40.0], [np.nan, np.nan], [32.0, 0.0]],
                      np.float32)
     gate = np.array([False, False, False, False, True])
@@ -170,7 +174,8 @@ def test_decode_accuracy(interp):
     0.05 (bilinear)."""
     n = 128
     f0 = _texture(n, seed=6)
-    test = ScaleRotationEstimator(ScaleRotationConfig(resolution=n, magnitude=20.0, interp=interp))
+    test = ScaleRotationEstimator(
+        ScaleRotationConfig(resolution=n, magnitude=20.0, interp=interp), device="cpu")
     res = test.step_batch(torch.from_numpy(np.stack([f0, f0])),
                           torch.from_numpy(np.stack([_warp(f0, 10.0, 1.0), _warp(f0, 0.0, 1.08)])))
     rot_tol, scale_tol = (1.0, 0.03) if interp == "lanczos4" else (1.5, 0.05)
@@ -185,6 +190,6 @@ def test_config_fields_match_jax_and_validation():
         [f.name for f in dataclasses.fields(JaxConfig)]
     assert ScaleRotationConfig() == ScaleRotationConfig(**dataclasses.asdict(JaxConfig()))
     with pytest.raises(ValueError, match="backend"):
-        ScaleRotationEstimator(ScaleRotationConfig(backend="nope"))
+        ScaleRotationEstimator(ScaleRotationConfig(backend="nope"), device="cpu")
     with pytest.raises(ValueError, match="interp"):
-        ScaleRotationEstimator(ScaleRotationConfig(interp="cubic"))
+        ScaleRotationEstimator(ScaleRotationConfig(interp="cubic"), device="cpu")
