@@ -2,7 +2,16 @@
 """Smoke run of the PyTorch port's main path on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --baseline-kernel-a PATH  # phases 1 and 2, then compare_kernel_a
+    python3 chip_smoke.py --baseline NAME=PATH [--baseline NAME=PATH ...]
+
+``--baseline`` builds kernel NAME (``phase_correlate_frames``,
+``peak_refine_raw`` or ``sad_search``) from another source, PATH, and times
+it in turns with the kernel from ``csrc/`` in the phase that times that
+kernel (4, 6, 7 and 13); PATH may have the current C interface or, for B
+and C, the one before their redesign.  The card gets no ``.git/``: write an
+earlier source into ``build/`` first, e.g. ``git show
+a7250c7:mrs_optic_flow_tpu_torch/csrc/sad_search.cu > build/baseline/sad_search.cu``
+(kernel B's ``peak_refine_raw.cu`` with its ``peak_refine.cuh`` beside it).
 
 Phases, each printing a line when it finishes:
 
@@ -11,8 +20,9 @@ Phases, each printing a line when it finishes:
    ``mrs_optic_flow_tpu_torch/csrc/`` into ``build/torch_kernels/``, one
    ``nvcc`` per source, all started together, and checks the engines' route
    constant (kernel A's largest patch), kernel A's blocks an SM (two at
-   n = 120) and kernel C's tile (two blocks an SM) against the libraries'
-   shared-memory formulas and the device's limits;
+   n = 120), kernel C's launch geometry (``sad_geometry``: shared memory,
+   scratch, counters) against its library and the device's limits, and
+   kernels B's and C's fill targets against the SM count;
 3. kernel A against its plain twin and the NumPy oracle (``tests/oracle.py``)
    on the shared accuracy pairs (480 px frames, 120 px patches, uint8), plus
    the edge cases: zero frames, identical frames, a NaN pixel, float32
@@ -31,10 +41,15 @@ Phases, each printing a line when it finishes:
 6. kernel B against its twin: log-polar surfaces at N = 480 (P = 1 and 4),
    FftMethod ``backend="fft"`` surfaces ``[64, 120, 120]``, and ties, NaN
    inside and outside the search window, an edge peak, an all-negative and
-   a zero surface; both timed at the two shapes;
-7. kernel C against its twin at the default geometry (9 cells, S = 120,
-   R = 21): bit-identical maps on integer-valued inputs, 1e-6 relative on
-   float inputs, G = 1 and repeated runs identical; both timed;
+   a zero surface; then P = 1, 4 and 64 with ties and NaN in different row
+   bands of the split, r >= n/2 and r < n/2, odd n; timed at [1, 480, 480],
+   [4, 480, 480] and [64, 120, 120] through the wrapper and by its own
+   device time, beside the twin and ``torch.max`` over the same surfaces;
+7. kernel C against its twin: bit-identical maps on integer-valued inputs
+   and identical repeated runs at (S, R) = (120, 21), (120, 0) and (8, 3),
+   G = 1, 9 and 16; 1e-6 relative on float inputs; timed at the default
+   geometry (9 cells, S = 120, R = 21) and at G = 1 beside the twin, the
+   bound and ``torch.cdist(p=1)`` over the regions' unfold;
 8. the node with ``scale_rotation: true`` at full width (frame 480,
    log-polar 480, Lanczos-4) on 20 frames rotated and zoomed about the
    image centre by known steps: every decode after the first within 1 deg
@@ -65,16 +80,19 @@ Phases, each printing a line when it finishes:
     0.25 m/s of the truth, short-range ones within 0.15 m/s, every frame
     through the named kernel;
 13. kernel C at S = 160 and 240 (R = 21), the blocks of repair F3:
-    bit-identical to its twin on integer inputs and on a repeated run.
+    bit-identical to its twin on integer inputs and on a repeated run;
+    timed.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
 one JSON object describing each kernel: its launches in its node phase
 (kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
 conformance check of phase 11), its largest difference from its twin, its
-time, the twin's and the stock PyTorch route's (``library_ms``: the
-``torch.fft`` chain for A, D and E; null for B and C, which no PyTorch call
-computes) at the node's shape, and its bound there (``bound_ms``: the
+time through the wrapper (``ms``, CUDA events over back-to-back calls), its
+own device time (``own_ms``, ``torch.profiler``'s kernel durations), the
+twin's and the stock PyTorch route's (``library_ms``: the ``torch.fft``
+chain for A, D and E; ``torch.cdist`` for C; null for B, which no PyTorch
+call computes) at the node's shape, and its bound there (``bound_ms``: the
 larger of its operations over 67 TFLOP/s and its bytes, each read or
 written once, over 3.35 TB/s; ``bound_by`` names which).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -194,6 +212,80 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def own_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()`` call: for each kernel that
+    ``torch.profiler`` records over ``reps`` calls (after a warm-up call),
+    the median of its durations times its launches a call, summed.  It
+    leaves out the host's time to issue the launches and the gaps between
+    them; the median keeps a launch that waited on the card's clock out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durations: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            durations.setdefault(e.name, []).append(e.self_device_time_total)
+    check(durations, "the profiler recorded no kernel")
+    total_us = sum(float(np.median(d)) * max(1, round(len(d) / reps)) for d in durations.values())
+    return total_us / 1e3
+
+
+#: ``--baseline NAME=PATH``: kernel name -> the library built from PATH
+BASELINES: dict = {}
+
+
+def build_baselines(specs: list) -> None:
+    """Build each ``NAME=PATH`` source into ``build/torch_kernels/`` (all at
+    once) and bind its C interface: the current one, or the one the kernel
+    had before its redesign (kernel B's ``prr_peak_refine_raw``, kernel C's
+    ``sad_sad_search``)."""
+    import ctypes
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+
+    jobs = {}
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        check(name in KERNELS and path, f"--baseline {spec}: expected NAME=PATH, NAME one of {list(KERNELS)}")
+        out = ck.BUILD_DIR / f"lib{name}_baseline.so"
+        jobs[name] = (out, subprocess.Popen([ck._nvcc(), *ck.NVCC_FLAGS, "-o", str(out), path],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    before = {
+        "prr_peak_refine_raw": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
+        "sad_sad_search": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
+    }
+    for name, (out, proc) in jobs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"baseline {name}: nvcc failed\n{log}")
+        for line in ptxas_lines(log):
+            say(f"  ptxas baseline {name}: {line}")
+        lib = ctypes.CDLL(str(out))
+        for fn, (restype, argtypes) in {**ck._SIGNATURES[name], **before}.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+        BASELINES[name] = lib
+
+
+def in_turns(label: str, runners: dict, reps: int) -> dict:
+    """Own times (``own_ms``) of ``runners`` {"baseline": fn, "kernel": fn}
+    in turns on one card: baseline, kernel, kernel, baseline.  Returns each
+    one's mean."""
+    order = ["baseline", "kernel", "kernel", "baseline"]
+    times = {name: [] for name in runners}
+    for name in order:
+        times[name].append(own_ms(runners[name], reps))
+    say(f"  {label}, own time in turns {order}: " + "; ".join(
+        f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()))
+    return {name: float(np.mean(ts)) for name, ts in times.items()}
+
+
 def check_kernel(dev, n_pairs: int = 64) -> float:
     """Phase 3.  Returns the largest shift difference between kernel and twin."""
     import torch
@@ -293,7 +385,7 @@ def measure_throughput(dev) -> tuple:
     inputs (``phase_correlate_field(..., backend="fft")``: rfft2 twice, the
     cross-power, irfft2, then the plain shift, mask and peak; a chain of
     calls, not one) and the bound, and ``step_batch`` throughput.  Returns
-    (kernel ms, twin ms, library ms) at B = 1."""
+    (kernel ms through the wrapper, own ms, twin ms, library ms) at B = 1."""
     from oracle import make_accuracy_pairs
 
     import torch
@@ -345,9 +437,12 @@ def measure_throughput(dev) -> tuple:
             f"bound {bound_ms:.5f} ms ({by}), kernel at {bound_ms / ms:.2%} of it")
         out[b] = (ms, lib_ms)
     ms_twin_one = time_cuda(lambda: twin(curr[:1], prev[:1], patch=120), 50)
-    say(f"  B=1: kernel {out[1][0]:.4f} ms, twin {ms_twin_one:.4f} ms")
+    c1, p1 = curr[:1].contiguous(), prev[:1].contiguous()
+    own_one = own_ms(lambda: kernel(c1, p1, patch=120), 200)
+    say(f"  B=1: kernel {out[1][0]:.4f} ms through the wrapper, own {own_one:.4f} ms; twin "
+        f"{ms_twin_one:.4f} ms")
     say("[4 throughput] done")
-    return out[1][0], ms_twin_one, out[1][1]
+    return out[1][0], own_one, ms_twin_one, out[1][1]
 
 
 PEAK_SHIFT_TOL = 1e-4  # px, kernel B against its twin
@@ -407,9 +502,95 @@ def render_affine(n_frames: int, step_deg: float, step_zoom: float, shape=(480, 
     return frames
 
 
-def check_peak_kernel(dev) -> tuple:
-    """Phase 6.  Returns (max shift difference, kernel ms, twin ms) at the
-    scale/rotation shape (P = 1, N = 480)."""
+def peak_runner(lib, raw, search_radius: int, centroid_radius: int = 3):
+    """A closure launching kernel B from ``lib`` on ``raw [P, N, N]`` with
+    its outputs and scratch allocated once: the current interface or the
+    one-block-a-surface design before it (``prr_peak_refine_raw``)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+
+    p, n = raw.shape[0], raw.shape[-1]
+    dev = raw.device
+    shift = torch.empty((p, 2), dtype=torch.float32, device=dev)
+    maxval = torch.empty((p,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if hasattr(lib, "prr_peak_refine_raw"):
+        fn = lib.prr_peak_refine_raw
+        args = (raw.data_ptr(), p, n, search_radius, centroid_radius, shift.data_ptr(),
+                maxval.data_ptr(), None, stream)
+    else:
+        fn = lib.prr_peak_refine_split
+        k, band_rows = ck.peak_split(p, n, search_radius)
+        scratch = torch.empty((3 * p * k,), dtype=torch.int32, device=dev)
+        counters = torch.zeros((p,), dtype=torch.int32, device=dev)
+        args = (raw.data_ptr(), p, n, search_radius, centroid_radius, k, band_rows,
+                int(n % 4 == 0), scratch.data_ptr(), counters.data_ptr(), shift.data_ptr(),
+                maxval.data_ptr(), None, stream)
+
+    def run():
+        check(fn(*args) == 0, "kernel B launch failed")
+        return shift
+    return run
+
+
+def peak_cases(dev) -> list:
+    """Phase 6's surfaces for kernel B's split, as (raw, radius, label):
+    ties and NaN in different row bands (bands of 2 rows at P = 1, N = 480,
+    of 8 at P = 4, of 23 at P = 64), the masked zero and the largest
+    negative value as peaks, NaN outside the window, odd n."""
+    import torch
+
+    rng = np.random.default_rng(6)
+
+    def noise(p, n):
+        return rng.uniform(-0.1, 0.1, (p, n, n)).astype(np.float32)
+
+    one = noise(3, 480)
+    one[0, 1, 7] = one[0, 2, 3] = 1.0  # a tie across two blocks
+    one[1, 0, 5] = one[1, 479, 5] = 1.0  # first and last blocks
+    one[2, 10, 10] = 1.0
+    one[2, 300, 4] = np.nan  # NaN in one band only
+    four = noise(4, 480)
+    four[0, 3, 9] = four[0, 12, 9] = 0.9  # bands 0 and 1
+    four[1, 100, 100] = 2.0
+    four[1, 471, 2] = np.nan
+    four[2] = -rng.uniform(0.5, 1.0, (480, 480))  # r >= n/2: the largest negative wins
+    four[2, 200, 7] = -0.25
+    four[3, 479, 479] = 1.5  # an edge peak (shifted (239, 239))
+    many = noise(64, 120)
+    for i in range(64):
+        many[i, rng.integers(0, 120), rng.integers(0, 120)] = 1.0
+    many[5] = -rng.uniform(0.5, 1.0, (120, 120))  # r < n/2: the masked zero at index 0 wins
+    many[9, 60, 60] = np.nan  # shifted (0, 0): outside radius 55
+    many[17, 30, 3] = np.nan  # inside, one band
+    many[20, 2, 2] = many[20, 100, 2] = 3.0  # a tie across bands
+    odd = noise(3, 121)
+    odd[0, 2, 118] = 1.0
+    odd[1, 1, 1] = odd[1, 120, 2] = 0.5
+    odd[2, 60, 60] = np.nan
+    odd[2, 0, 1] = 1.0
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return [
+        (on(one[:1]), 240, "P=1 N=480 r=240, tie across two bands"),
+        (on(one[1:2]), 240, "P=1 N=480 r=240, tie between the first and last bands"),
+        (on(one[2:]), 240, "P=1 N=480 r=240, NaN in one band"),
+        (on(four), 240, "P=4 N=480 r=240: tie, NaN, all negative, edge"),
+        (on(four), 100, "P=4 N=480 r=100"),
+        (on(many), 55, "P=64 N=120 r=55: masked zero, NaN outside and inside, tie"),
+        (on(many), 60, "P=64 N=120 r=60"),
+        (on(odd), 30, "P=3 N=121 r=30"),
+        (on(odd), 60, "P=3 N=121 r=60"),
+    ]
+
+
+def check_peak_kernel(dev) -> dict:
+    """Phase 6.  Returns kernel B's numbers at the scale/rotation shape (P =
+    1, N = 480): max shift difference, wrapper ms, own ms, twin ms (and the
+    baseline's own ms in turns when one is given)."""
     import torch
 
     from oracle import make_accuracy_pairs
@@ -418,6 +599,7 @@ def check_peak_kernel(dev) -> tuple:
         ScaleRotationConfig,
         ScaleRotationEstimator,
     )
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
     from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
         peak_refine_raw as kernel,
         peak_refine_raw_ref as twin,
@@ -456,21 +638,157 @@ def check_peak_kernel(dev) -> tuple:
     errs.append(compare_peak(edge, 60, "edge cases, radius 60"))
     km = kernel(edge, search_radius=55)[1]
     check(bool(torch.isnan(km[1])) and not bool(torch.isnan(km[2])), "NaN inside/outside the window")
+    for raw, radius, label in peak_cases(dev):
+        errs.append(compare_peak(raw, radius, label))
+        k, band = ck.peak_split(raw.shape[0], raw.shape[-1], radius)
+        say(f"  {label}: {k} blocks a surface of {band} rows, matches the twin")
     err = max(errs)
 
-    ms = time_cuda(lambda: kernel(lp_raw[:1], search_radius=240), 200)
-    plain_ms = time_cuda(lambda: twin(lp_raw[:1], search_radius=240), 50)
-    ms_fft = time_cuda(lambda: kernel(fft_raw, search_radius=55), 200)
-    plain_fft = time_cuda(lambda: twin(fft_raw, search_radius=55), 50)
-    say(f"  max|shift - twin| {err:.3g} px; [1, 480, 480]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; "
-        f"[64, 120, 120]: kernel {ms_fft:.4f} ms, twin {plain_fft:.4f} ms")
-    say("[6 kernel B] matches its twin on log-polar, fft-route, tie, NaN, edge and zero surfaces")
-    return err, ms, plain_ms
+    out = {"err": err}
+    for key, raw, radius, reps in (("1x480", lp_raw[:1].contiguous(), 240, 200),
+                                   ("4x480", lp_raw, 240, 200), ("64x120", fft_raw, 55, 200)):
+        ms = time_cuda(lambda: kernel(raw, search_radius=radius), reps)
+        own = own_ms(lambda: kernel(raw, search_radius=radius), reps)
+        plain_ms = time_cuda(lambda: twin(raw, search_radius=radius), 50)
+        read_floor = own_ms(lambda: torch.max(raw), reps)
+        k, band = ck.peak_split(raw.shape[0], raw.shape[-1], radius)
+        line = (f"  [{key}] r={radius}, {k} blocks a surface: kernel {ms:.4f} ms through the wrapper, "
+                f"own {own:.4f} ms; twin {plain_ms:.4f} ms; torch.max over the surfaces (the argmax "
+                f"alone, a library reduction's read floor) own {read_floor:.4f} ms")
+        say(line)
+        out[key] = {"ms": ms, "own_ms": own, "plain_ms": plain_ms, "max_ms": read_floor}
+        if "peak_refine_raw" in BASELINES:
+            turns = in_turns(f"kernel B [{key}]", {
+                "baseline": peak_runner(BASELINES["peak_refine_raw"], raw, radius),
+                "kernel": peak_runner(ck.load_library("peak_refine_raw"), raw, radius)}, reps)
+            out[key]["baseline_own_ms"] = turns["baseline"]
+            out[key]["turns_own_ms"] = turns["kernel"]
+    say(f"  max|shift - twin| {err:.3g} px")
+    say("[6 kernel B] matches its twin on log-polar, fft-route, tie, NaN, edge, zero, banded and odd-n "
+        "surfaces")
+    return out
 
 
-def check_sad_kernel(dev) -> tuple:
-    """Phase 7.  Returns (max abs difference on integer inputs, kernel ms,
-    twin ms) at the default geometry (9 cells, S = 120, R = 21)."""
+def old_sad_tile_rows(s: int, r: int, smem_limit: int) -> int:
+    """Block rows a tile of kernel C's design before its register tiling
+    (``sad_tile_rows`` as it stood at a7250c7): the fewest even tiles with
+    which two 512-thread blocks share an SM."""
+    row_bytes = (2 * s + 2 * r) * 4
+    fit = max(1, (smem_limit // 2 - 1024 - (2 * r + 1) * 32 * 8) // row_bytes)
+    tiles = -(-s // fit)
+    return -(-s // tiles)
+
+
+def sad_runner(lib, curr, prev, s: int, r: int):
+    """A closure launching kernel C from ``lib`` on ``curr [G, S, S]`` and
+    ``prev [G, S+2R, S+2R]`` with its output and scratch allocated once: the
+    current interface or the one-block-a-row-shift design before it
+    (``sad_sad_search``, tiles of ``old_sad_tile_rows``)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+
+    g, d, dev = curr.shape[0], 2 * r + 1, curr.device
+    out = torch.empty((g, d, d), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if hasattr(lib, "sad_sad_search"):
+        fn = lib.sad_sad_search
+        rows = old_sad_tile_rows(s, r, torch.cuda.get_device_properties(dev).shared_memory_per_block_optin)
+        args = (curr.data_ptr(), prev.data_ptr(), g, s, r, rows, out.data_ptr(), stream)
+    else:
+        fn = lib.sad_search_tiled
+        geo = ck.sad_geometry(g, s, r)
+        scratch = torch.empty((geo.scratch,), dtype=torch.float64, device=dev)
+        counters = torch.zeros((geo.counters,), dtype=torch.int32, device=dev)
+        args = (curr.data_ptr(), prev.data_ptr(), g, s, r, geo.xb, scratch.data_ptr(),
+                counters.data_ptr(), out.data_ptr(), stream)
+
+    def run():
+        check(fn(*args) == 0, "kernel C launch failed")
+        return out
+    return run
+
+
+def sad_blocks(dev, rng, g: int, s: int, r: int, integer: bool = True):
+    import torch
+
+    def draw(shape):
+        x = rng.integers(0, 256, shape) if integer else rng.uniform(0, 255, shape)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    return draw((g, s, s)), draw((g, s + 2 * r, s + 2 * r))
+
+
+def check_sad_exact(dev, rng, g: int, s: int, r: int):
+    """Kernel C bit-identical to its twin on integer-valued inputs, and on a
+    repeated run.  Returns the inputs and the map."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import block_matching
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import sad_search as kernel
+
+    curr, prev = sad_blocks(dev, rng, g, s, r)
+    k = kernel(curr, prev, block_size=s, scan_radius=r)
+    t = block_matching.sad_search(curr, prev, block_size=s, scan_radius=r)
+    check(tuple(k.shape) == (g, 2 * r + 1, 2 * r + 1), f"SAD map shape {tuple(k.shape)}")
+    check(torch.equal(k, t), f"G={g} S={s} R={r}: max |kernel - twin| {float((k - t).abs().max())}")
+    check(torch.equal(kernel(curr, prev, block_size=s, scan_radius=r), k),
+          f"G={g} S={s} R={r}: a repeated run differs")
+    return curr, prev, k
+
+
+def time_sad(dev, curr, prev, s: int, r: int, label: str, library: bool = False) -> dict:
+    """Kernel C through the wrapper (CUDA events) and its own time, the
+    twin's, ``torch.cdist`` over the unfolded regions when ``library``, and
+    the former design in turns when ``--baseline sad_search=PATH`` names it."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import block_matching
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import sad_search as kernel
+
+    g, d = curr.shape[0], 2 * r + 1
+    out = {
+        "ms": time_cuda(lambda: kernel(curr, prev, block_size=s, scan_radius=r), 50),
+        "own_ms": own_ms(lambda: kernel(curr, prev, block_size=s, scan_radius=r), 50),
+        "plain_ms": time_cuda(lambda: block_matching.sad_search(curr, prev, block_size=s, scan_radius=r), 10),
+        "library_ms": None,
+    }
+    if library:
+        # one PyTorch call computing the same map: L1 distances of each block to
+        # its D*D windows, the [G, D*D, S*S] unfold built once, outside the timing
+        windows = prev.unfold(1, s, 1).unfold(2, s, 1).reshape(g, d * d, s * s)
+        flat = curr.reshape(g, 1, s * s)
+        lib_map = torch.cdist(flat, windows, p=1).reshape(g, d, d)
+        k = kernel(curr, prev, block_size=s, scan_radius=r)
+        rel = float(((lib_map - k).abs() / k.abs().clamp_min(1e-30)).max())
+        check(rel <= SAD_RTOL, f"torch.cdist map differs from the kernel's by {rel} relative")
+        out["library_ms"] = time_cuda(lambda: torch.cdist(flat, windows, p=1), 20)
+        out["library_own_ms"] = own_ms(lambda: torch.cdist(flat, windows, p=1), 20)
+        say(f"  {label}: torch.cdist(p=1) over the {windows.numel() * 4 / 1e9:.2f} GB unfold: "
+            f"{out['library_ms']:.4f} ms (own {out['library_own_ms']:.4f} ms), within {rel:.2g} "
+            f"of the kernel")
+        del windows
+        torch.cuda.empty_cache()
+    geo = ck.sad_geometry(g, s, r)
+    bound_ms, by = bound("sad_search", g=g, s=s, r=r)
+    say(f"  {label}: {geo.blocks} blocks of {geo.threads} threads ({geo.parts} parts, bands of "
+        f"{geo.xb}); kernel {out['ms']:.4f} ms through the wrapper, own {out['own_ms']:.4f} ms; twin "
+        f"{out['plain_ms']:.4f} ms; bound {bound_ms:.5f} ms ({by}), own time at "
+        f"{bound_ms / out['own_ms']:.1%} of it")
+    if "sad_search" in BASELINES:
+        turns = in_turns(f"kernel C {label}", {
+            "baseline": sad_runner(BASELINES["sad_search"], curr, prev, s, r),
+            "kernel": sad_runner(ck.load_library("sad_search"), curr, prev, s, r)}, 50)
+        out["baseline_own_ms"] = turns["baseline"]
+        out["turns_own_ms"] = turns["kernel"]
+    return out
+
+
+def check_sad_kernel(dev) -> dict:
+    """Phase 7.  Returns kernel C's numbers at the node's geometry (9
+    cells, S = 120, R = 21): max abs difference on integer inputs (0) and
+    ``time_sad``'s times."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import block_matching
@@ -478,30 +796,29 @@ def check_sad_kernel(dev) -> tuple:
 
     s, r, g = 120, 21, 9
     rng = np.random.default_rng(5)
-
-    def run(fn, c, p):
-        return fn(c, p, block_size=s, scan_radius=r)
-
-    curr = torch.from_numpy(rng.integers(0, 256, (g, s, s)).astype(np.float32)).to(dev)
-    prev = torch.from_numpy(rng.integers(0, 256, (g, s + 2 * r, s + 2 * r)).astype(np.float32)).to(dev)
-    k = run(kernel, curr, prev)
-    t = run(block_matching.sad_search, curr, prev)
-    check(tuple(k.shape) == (g, 2 * r + 1, 2 * r + 1), f"SAD map shape {tuple(k.shape)}")
-    check(torch.equal(k, t), f"integer inputs: max |kernel - twin| {float((k - t).abs().max())}")
-    check(torch.equal(run(kernel, curr, prev), k), "a repeated run differs")
-    check(torch.equal(run(kernel, curr[:1].contiguous(), prev[:1].contiguous()), k[:1]),
-          "G=1 differs from the same cell in G=9")
-    cf = torch.from_numpy(rng.uniform(0, 255, (g, s, s)).astype(np.float32)).to(dev)
-    pf = torch.from_numpy(rng.uniform(0, 255, (g, s + 2 * r, s + 2 * r)).astype(np.float32)).to(dev)
-    kf, tf = run(kernel, cf, pf), run(block_matching.sad_search, cf, pf)
-    rel = float(((kf - tf).abs() / tf.abs()).max())
+    curr, prev, k = check_sad_exact(dev, rng, g, s, r)
+    check(torch.equal(kernel(curr[:1].contiguous(), prev[:1].contiguous(), block_size=s, scan_radius=r),
+                      k[:1]), "G=1 differs from the same cell in G=9")
+    for ss, rr in ((120, 21), (120, 0), (8, 3)):
+        for gg in (1, 9, 16):
+            check_sad_exact(dev, rng, gg, ss, rr)
+    say("  integer inputs bit-identical and repeated runs identical at (S, R) = (120, 21), "
+        "(120, 0), (8, 3), G = 1, 9, 16")
+    rel = 0.0
+    for gg in (1, 9):
+        cf, pf = sad_blocks(dev, rng, gg, s, r, integer=False)
+        kf = kernel(cf, pf, block_size=s, scan_radius=r)
+        tf = block_matching.sad_search(cf, pf, block_size=s, scan_radius=r)
+        rel = max(rel, float(((kf - tf).abs() / tf.abs()).max()))
+        check(torch.equal(kernel(cf, pf, block_size=s, scan_radius=r), kf), "float inputs: a repeated run differs")
     check(rel <= SAD_RTOL, f"float inputs: relative difference {rel}")
-    ms = time_cuda(lambda: run(kernel, curr, prev), 50)
-    plain_ms = time_cuda(lambda: run(block_matching.sad_search, curr, prev), 10)
-    say(f"  integer inputs bit-identical, float inputs within {rel:.3g} relative; "
-        f"[9, 43, 43]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    say(f"  float inputs within {rel:.3g} relative of the twin")
+    out = time_sad(dev, curr, prev, s, r, "[9, 43, 43] S=120", library=True)
+    c1, p1 = curr[:1].contiguous(), prev[:1].contiguous()
+    out["g1"] = time_sad(dev, c1, p1, s, r, "[1, 43, 43] S=120")
     say("[7 kernel C] matches its twin; G=1 and repeated runs identical")
-    return float((k - t).abs().max()), ms, plain_ms
+    out["err"] = 0.0
+    return out
 
 
 def render_frames(n_frames: int, seed: int = 0, heights=None) -> list:
@@ -717,8 +1034,8 @@ def masked_pair(n: int, seed: int, strong=(70.0, 0.0)):
 
 def check_fullfused_kernel(dev) -> tuple:
     """Phase 10.  Returns (max shift difference from the twin, kernel ms,
-    twin ms, torch.fft route ms) at the node's shape of phase 12(b) (n = 60,
-    P = 64)."""
+    own ms, twin ms, torch.fft route ms) at the node's shape of phase 12(b)
+    (n = 60, P = 64)."""
     import torch
 
     from mrs_optic_flow_tpu_torch.models import FftMethod, FftMethodConfig
@@ -797,6 +1114,7 @@ def check_fullfused_kernel(dev) -> tuple:
 
     c60, p60 = batches[60]
     ms = time_cuda(lambda: kernel(c60, p60), 200)
+    own = own_ms(lambda: kernel(c60, p60), 200)
     plain_ms = time_cuda(lambda: twin(c60, p60), 50)
     lib_ms = time_cuda(lambda: phase_correlate_field(c60, p60, backend="fft"), 50)
     c480, p480 = (x[:1].contiguous() for x in batches[480])
@@ -805,18 +1123,19 @@ def check_fullfused_kernel(dev) -> tuple:
     lib480 = time_cuda(lambda: phase_correlate_field(c480, p480, backend="fft"), 50)
     b60 = bound("phase_correlate_fullfused", p=64, n=60, itemsize=1)
     b480 = bound("phase_correlate_fullfused", p=1, n=480, itemsize=1)
-    say(f"  max|shift - twin| {err:.3g} px; [64, 60, 60]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+    say(f"  max|shift - twin| {err:.3g} px; [64, 60, 60]: kernel {ms:.4f} ms (own {own:.4f} ms), "
+        f"twin {plain_ms:.4f} ms, "
         f"torch.fft route {lib_ms:.4f} ms, bound {b60[0]:.5f} ms ({b60[1]}); [1, 480, 480]: kernel "
         f"{ms480:.4f} ms, twin {plain480:.4f} ms, torch.fft route {lib480:.4f} ms, bound "
         f"{b480[0]:.5f} ms ({b480[1]})")
     say("[10 kernel D] matches twin and oracle at n = 45 to 480; uint8, zero, NaN, tie, masked cases hold")
-    return err, ms, plain_ms, lib_ms
+    return err, ms, own, plain_ms, lib_ms
 
 
 def check_fused_kernel(dev) -> tuple:
     """Phase 11.  Returns (E's launches in the conformance check, max shift
-    difference from the twin, kernel ms, twin ms, torch.fft route ms) on
-    ``[16, 120, 120]``."""
+    difference from the twin, kernel ms, own ms, twin ms, torch.fft route
+    ms) on ``[16, 120, 120]``."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import conformance
@@ -850,12 +1169,14 @@ def check_fused_kernel(dev) -> tuple:
     check(len(report) == 10 and worst <= CONFORMANCE_TOL, f"conformance {report}")
 
     ms = time_cuda(lambda: kernel(c, p), 200)
+    own = own_ms(lambda: kernel(c, p), 200)
     plain_ms = time_cuda(lambda: twin(c, p), 50)
     lib_ms = time_cuda(lambda: phase_correlate_field(c, p, backend="fft"), 50)
-    say(f"  max|shift - twin| {err:.3g} px; [16, 120, 120]: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+    say(f"  max|shift - twin| {err:.3g} px; [16, 120, 120]: kernel {ms:.4f} ms (own {own:.4f} ms, "
+        f"with the wrapper's forward DFTs), twin {plain_ms:.4f} ms, "
         f"torch.fft route {lib_ms:.4f} ms")
     say("[11 kernel E] matches its twin; conformance holds on the card")
-    return launches, err, ms, plain_ms, lib_ms
+    return launches, err, ms, own, plain_ms, lib_ms
 
 
 def run_long_range_nodes(dev) -> tuple:
@@ -937,33 +1258,23 @@ def check_lr_scale_rotation(dev, node, frames, published, launches, sr: bool, la
     check(err <= SR_TWIN_TOL, f"{label}: published decodes differ from the estimator's by {err}")
 
 
-def check_sad_tiled(dev) -> None:
-    """Phase 13 (repair F3): kernel C at blocks larger than a block's
-    shared memory."""
-    import torch
-
-    from mrs_optic_flow_tpu_torch.ops import block_matching
-    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import sad_search as kernel, sad_tile_rows
-
+def check_sad_large(dev) -> dict:
+    """Phase 13: kernel C at S = 160 and 240 (R = 21), beyond the node's
+    blocks: bit-identical to its twin on integer inputs and on a repeated
+    run; timed.  Returns the times by S."""
     rng = np.random.default_rng(13)
     r = 21
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    out = {}
     for s, g in ((160, 9), (240, 4)):
-        rows = sad_tile_rows(s, r, limit)
-        curr = torch.from_numpy(rng.integers(0, 256, (g, s, s)).astype(np.float32)).to(dev)
-        prev = torch.from_numpy(rng.integers(0, 256, (g, s + 2 * r, s + 2 * r)).astype(np.float32)).to(dev)
-        k = kernel(curr, prev, block_size=s, scan_radius=r)
-        t = block_matching.sad_search(curr, prev, block_size=s, scan_radius=r)
-        check(torch.equal(k, t), f"S={s}: max |kernel - twin| {float((k - t).abs().max())}")
-        check(torch.equal(kernel(curr, prev, block_size=s, scan_radius=r), k), f"S={s}: repeated run differs")
-        ms = time_cuda(lambda: kernel(curr, prev, block_size=s, scan_radius=r), 20)
-        say(f"  S={s}, R={r}, G={g}: {rows} rows a tile, bit-identical to the twin; kernel {ms:.4f} ms")
+        curr, prev, _ = check_sad_exact(dev, rng, g, s, r)
+        out[s] = time_sad(dev, curr, prev, s, r, f"[{g}, 43, 43] S={s}")
     say("[13 kernel C, large blocks] maps bit-identical to the twin")
+    return out
 
 
 def check_route_constants() -> None:
-    """Phase 2: the engines' route constant and kernel C's tiling rule agree
-    with the libraries' shared-memory formulas and the device's limit."""
+    """Phase 2: the engines' route constant and kernels B's and C's geometry
+    helpers agree with the libraries' formulas and the device's limits."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
@@ -977,21 +1288,31 @@ def check_route_constants() -> None:
     fits = [n for n in range(1, 481) if pcf.pcf_smem_bytes(n) + ck.STATIC_SMEM_BYTES <= limit]
     check(max(fits) == ck.PCF_MAX_PATCH, f"kernel A fits up to {max(fits)}, the engines route "
           f"up to {ck.PCF_MAX_PATCH}")
-    sm_limit = torch.cuda.get_device_properties(0).shared_memory_per_multiprocessor
-    tiles = {}
-    for s, r in ((24, 8), (120, 21), (159, 21), (160, 21), (240, 21)):
-        rows = tiles[s] = ck.sad_tile_rows(s, r, limit)
-        check(sad.sad_smem_bytes(s, r, rows) == ck.sad_smem_bytes(s, r, rows),
-              f"kernel C's formula at S={s}")
-        # two blocks an SM, each with the runtime's 1 KB reserve
-        check(2 * (sad.sad_smem_bytes(s, r, rows) + ck.STATIC_SMEM_BYTES) <= sm_limit,
-              f"kernel C's tile at S={s}: two blocks do not share an SM")
+    props = torch.cuda.get_device_properties(0)
+    sm_limit = props.shared_memory_per_multiprocessor
+    # kernel C: the library's geometry is the wrapper's, and every block fits
+    for g, s, r in ((1, 120, 21), (9, 120, 21), (16, 120, 21), (9, 160, 21), (4, 240, 21),
+                    (9, 120, 0), (9, 8, 3), (1, 256, 32), (3, 1000, 5), (1, 40, 100)):
+        geo = ck.sad_geometry(g, s, r)
+        got = (sad.sad_smem_bytes(r, geo.xb), sad.sad_scratch_doubles(g, s, r, geo.xb),
+               sad.sad_counters(g, s, r, geo.xb))
+        check(got == (geo.smem, geo.scratch, geo.counters),
+              f"kernel C's geometry at G={g} S={s} R={r}: library {got}, wrapper {geo}")
+        check(geo.smem + ck.STATIC_SMEM_BYTES <= limit, f"kernel C at S={s} R={r}: {geo.smem} B")
+    node = ck.sad_geometry(9, 120, 21)
+    per_sm = sm_limit // (node.smem + ck.STATIC_SMEM_BYTES)
+    check(per_sm >= 2, f"kernel C at the node's geometry: {per_sm} blocks an SM by shared memory")
+    check(ck.SAD_FILL_BLOCKS == props.multi_processor_count
+          and ck.PEAK_FILL_BLOCKS == 2 * props.multi_processor_count,
+          f"fill targets {ck.SAD_FILL_BLOCKS}, {ck.PEAK_FILL_BLOCKS} for {props.multi_processor_count} SMs")
+    peak_grid = {(p, n, r): ck.peak_split(p, n, r) for p, n, r in ((1, 480, 240), (4, 480, 240), (64, 120, 55))}
     occupancy = {n: pcf.pcf_blocks_per_sm(n) for n in range(8, ck.PCF_MAX_PATCH + 1, 8)}
     check(min(occupancy.values()) >= 1 and occupancy[120] >= 2,
           f"kernel A's blocks an SM by patch: {occupancy}")
     say(f"  kernel A takes patches up to {ck.PCF_MAX_PATCH} px ({ck.pcf_smem_bytes(ck.PCF_MAX_PATCH)} B "
-        f"of {limit}), blocks an SM by patch {occupancy}; kernel C rows a tile by block size: "
-        f"{tiles} ({sm_limit} B an SM)")
+        f"of {limit}), blocks an SM by patch {occupancy}; kernel C at the node's geometry: "
+        f"{node.blocks} blocks of {node.threads} threads, {node.smem} B, {per_sm} an SM by shared "
+        f"memory ({sm_limit} B an SM); kernel B (blocks a surface, rows a block): {peak_grid}")
 
 
 def ptxas_lines(log: str) -> list:
@@ -1010,32 +1331,19 @@ def ptxas_lines(log: str) -> list:
     return lines
 
 
-def compare_kernel_a(dev, baseline_source: str) -> None:
-    """``--baseline-kernel-a PATH``: kernel A from ``csrc/`` against ``PATH``,
-    another source of kernel A with the same C interface, on one card, timed
-    in turns (baseline, kernel, kernel, baseline) at B = 1 and B = 4096 on
-    the uint8 bench pairs; the two agree within SHIFT_TOL.  The direct-DFT
-    design that kernel A replaced comes from git history, written into the
-    checkout before the run:
-    ``git show 25bcf51:mrs_optic_flow_tpu_torch/csrc/phase_correlate_frames.cu``."""
-    import ctypes
-
+def compare_kernel_a(dev) -> None:
+    """Phase 4, with ``--baseline phase_correlate_frames=PATH``: kernel A
+    from ``csrc/`` against PATH, another source of kernel A with the same C
+    interface, own times in turns at B = 1 and B = 4096 on the uint8 bench
+    pairs; the two agree within SHIFT_TOL."""
     import torch
 
     from oracle import make_accuracy_pairs
 
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
 
-    out = ck.BUILD_DIR / "libpcf_baseline.so"
-    proc = subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-o", str(out), baseline_source],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    check(proc.returncode == 0, f"baseline: nvcc failed\n{proc.stdout}")
-    for line in ptxas_lines(proc.stdout):
-        say(f"  ptxas baseline: {line}")
-    libs = {"baseline": ctypes.CDLL(str(out)), "kernel": ck.load_library("phase_correlate_frames")}
-    fn = libs["baseline"].pcf_phase_correlate_frames
-    fn.restype, fn.argtypes = ck._SIGNATURES["phase_correlate_frames"]["pcf_phase_correlate_frames"]
-
+    libs = {"baseline": BASELINES["phase_correlate_frames"],
+            "kernel": ck.load_library("phase_correlate_frames")}
     prev_np, curr_np, _, _ = make_accuracy_pairs(np.random.default_rng(1), 64)
     reps = BENCH_BATCH // 64
     prev_all = torch.from_numpy(prev_np).to(dev).repeat(reps, 1, 1)
@@ -1058,14 +1366,7 @@ def compare_kernel_a(dev, baseline_source: str) -> None:
         runs = {name: runner(lib) for name, lib in libs.items()}
         err = float((runs["baseline"]() - runs["kernel"]()).abs().max())
         check(err <= SHIFT_TOL, f"baseline differs by {err} px")
-        order = ["baseline", "kernel", "kernel", "baseline"]
-        times = {name: [] for name in runs}
-        for name in order:
-            times[name].append(time_cuda(runs[name], n_reps))
-        say(f"  kernel A B={b}, in turns {order}: " + "; ".join(
-            f"{name} {' / '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items())
-            + f"; max|shift difference| {err:.2e} px")
-    say("[compare kernel A] done")
+        in_turns(f"kernel A B={b} (max|shift difference| {err:.2e} px)", runs, n_reps)
 
 
 def main() -> int:
@@ -1074,9 +1375,9 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--baseline-kernel-a", metavar="PATH",
-                        help="time kernel A against this source of it after phases 1 and 2, "
-                             "and stop")
+    parser.add_argument("--baseline", metavar="NAME=PATH", action="append", default=[],
+                        help="also time kernel NAME built from the source PATH in turns with the "
+                             "kernel from csrc/ (repeatable)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1102,36 +1403,38 @@ def main() -> int:
         for line in ptxas_lines(log):
             say(f"  ptxas {name}: {line}")
     check_route_constants()
+    build_baselines(args.baseline)
     say(f"[2 build] {time.perf_counter() - t0:.1f} s")
 
     dev = torch.device("cuda")
-    if args.baseline_kernel_a:
-        compare_kernel_a(dev, args.baseline_kernel_a)
-        return 0
     err_a = check_kernel(dev)
-    ms_a, plain_a, lib_a = measure_throughput(dev)
+    ms_a, own_a, plain_a, lib_a = measure_throughput(dev)
+    if "phase_correlate_frames" in BASELINES:
+        compare_kernel_a(dev)
     launches_a = run_node(dev)
     check(launches_a >= N_FRAMES - 1, f"{launches_a} kernel launches for {N_FRAMES - 1} processed frames")
-    err_b, ms_b, plain_b = check_peak_kernel(dev)
-    err_c, ms_c, plain_c = check_sad_kernel(dev)
+    b = check_peak_kernel(dev)
+    c = check_sad_kernel(dev)
     launches_b = run_scale_rotation_node(dev)
     launches_c = run_block_matching_nodes(dev)
-    err_d, ms_d, plain_d, lib_d = check_fullfused_kernel(dev)
-    launches_e, err_e, ms_e, plain_e, lib_e = check_fused_kernel(dev)
+    err_d, ms_d, own_d, plain_d, lib_d = check_fullfused_kernel(dev)
+    launches_e, err_e, ms_e, own_e, plain_e, lib_e = check_fused_kernel(dev)
     launches_d, _ = run_long_range_nodes(dev)
-    check_sad_tiled(dev)
+    check_sad_large(dev)
 
-    # each kernel at the shape its row times: (launches, error, ms, plain
-    # ms, library ms or None, the bound at that shape)
+    # each kernel at the shape its row times: (launches, error, ms through
+    # the wrapper, own ms, plain ms, library ms or None, the bound there)
+    b1 = b["1x480"]
     rows = {
-        "phase_correlate_frames": (launches_a, err_a, ms_a, plain_a, lib_a,
+        "phase_correlate_frames": (launches_a, err_a, ms_a, own_a, plain_a, lib_a,
                                    bound("phase_correlate_frames", b=1, n=120, q=4, itemsize=1)),
-        "peak_refine_raw": (launches_b, err_b, ms_b, plain_b, None,
+        "peak_refine_raw": (launches_b, b["err"], b1["ms"], b1["own_ms"], b1["plain_ms"], None,
                             bound("peak_refine_raw", p=1, n=480)),
-        "sad_search": (launches_c, err_c, ms_c, plain_c, None, bound("sad_search", g=9, s=120, r=21)),
-        "phase_correlate_fullfused": (launches_d, err_d, ms_d, plain_d, lib_d,
+        "sad_search": (launches_c, c["err"], c["ms"], c["own_ms"], c["plain_ms"], c["library_ms"],
+                       bound("sad_search", g=9, s=120, r=21)),
+        "phase_correlate_fullfused": (launches_d, err_d, ms_d, own_d, plain_d, lib_d,
                                       bound("phase_correlate_fullfused", p=64, n=60, itemsize=1)),
-        "phase_correlate_fused": (launches_e, err_e, ms_e, plain_e, lib_e,
+        "phase_correlate_fused": (launches_e, err_e, ms_e, own_e, plain_e, lib_e,
                                   bound("phase_correlate_fused", p=16, n=120, itemsize=4)),
     }
     say(json.dumps({"kernels": [{
@@ -1142,11 +1445,12 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
+        "own_ms": own,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
-    } for name, (launches, err, ms, plain_ms, lib_ms, (bound_ms, bound_by)) in rows.items()]}))
+    } for name, (launches, err, ms, own, plain_ms, lib_ms, (bound_ms, bound_by)) in rows.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -13,8 +13,9 @@
 // surface in shifted coordinates without wrap-around, with an FLT_EPSILON-
 // seeded denominator.  The result is relative to the centre (N/2, N/2).  NaN
 // anywhere inside the search window gives NaN maxval and NaN shifts; NaN
-// outside it is masked to 0.  One thread block of peak::kThreads threads per
-// surface.
+// outside it is masked to 0.  Kernels D and E take one thread block of
+// peak::kThreads threads a surface (peak_refine_raw_kernel); kernel B splits
+// each surface over several blocks with the same reduction and centroid.
 
 #pragma once
 
@@ -26,7 +27,6 @@
 namespace peak {
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kFltEpsilon = 1.1920928955078125e-07f;  // FLT_EPSILON
 
@@ -47,45 +47,18 @@ __device__ __forceinline__ void warp_argmax(float& best, int& best_s) {
   }
 }
 
-// Surface blockIdx.x of surf_g [P, n, n] -> shift_out[2 p .. 2 p + 1],
-// maxval_out[p] and, when index_out is not null, the peak's fftshifted flat
-// index.
-__global__ void __launch_bounds__(kThreads)
-    peak_refine_raw_kernel(const float* __restrict__ surf_g, int n, int search_radius,
-                           int centroid_radius, float* __restrict__ shift_out,
-                           float* __restrict__ maxval_out, int* __restrict__ index_out) {
-  const int p = blockIdx.x;
-  const float* __restrict__ surf = surf_g + static_cast<size_t>(p) * n * n;
-  const int half = n / 2;
-
-  float best = -INFINITY;
-  int best_s = n * n;
-  int has_nan = 0;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int y = e / n;
-    const int x = e - y * n;
-    const int sy = y + half < n ? y + half : y + half - n;
-    const int sx = x + half < n ? x + half : x + half - n;
-    const bool keep = abs(sy - half) <= search_radius && abs(sx - half) <= search_radius;
-    const float v = keep ? surf[e] : 0.0f;
-    if (v != v) {
-      has_nan = 1;
-    } else {
-      const int s = sy * n + sx;
-      if (better(v, s, best, best_s)) {
-        best = v;
-        best_s = s;
-      }
-    }
-  }
+// Reduce every thread's (value, shifted index) candidate and NaN flag over
+// the block.  On return every lane of warp 0 holds the block's candidate and
+// flag; the other warps' values are undefined.
+__device__ __forceinline__ void block_argmax(float& best, int& best_s, int& has_nan) {
+  __shared__ float warp_best[32];
+  __shared__ int warp_s[32];
+  __shared__ int warp_nan[32];
   warp_argmax(best, best_s);
   has_nan = __any_sync(kFull, has_nan);
-
-  __shared__ float warp_best[kWarps];
-  __shared__ int warp_s[kWarps];
-  __shared__ int warp_nan[kWarps];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
   if (lane == 0) {
     warp_best[warp] = best;
     warp_s[warp] = best_s;
@@ -93,16 +66,27 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (warp != 0) return;
-
-  best = lane < kWarps ? warp_best[lane] : -INFINITY;
-  best_s = lane < kWarps ? warp_s[lane] : n * n;
-  has_nan = __any_sync(kFull, lane < kWarps && warp_nan[lane]);
+  best = lane < n_warps ? warp_best[lane] : -INFINITY;
+  best_s = lane < n_warps ? warp_s[lane] : 0x7fffffff;
+  has_nan = __any_sync(kFull, lane < n_warps && warp_nan[lane]);
   warp_argmax(best, best_s);
   best = __shfl_sync(kFull, best, 0);
   best_s = __shfl_sync(kFull, best_s, 0);
+}
 
-  // positive-only weighted centroid around the peak, in shifted coordinates,
-  // one window entry per lane
+// One warp, every lane holding surface p's peak (value, shifted index) and
+// NaN flag: the positive-only weighted centroid around the peak, in shifted
+// coordinates, one window entry per lane, then shift_out[2 p .. 2 p + 1],
+// maxval_out[p] and, when index_out is not null, the peak's fftshifted flat
+// index.
+__device__ __forceinline__ void centroid_store(const float* __restrict__ surf, int n,
+                                               int search_radius, int centroid_radius,
+                                               float best, int best_s, int has_nan, int p,
+                                               float* __restrict__ shift_out,
+                                               float* __restrict__ maxval_out,
+                                               int* __restrict__ index_out) {
+  const int lane = threadIdx.x % 32;
+  const int half = n / 2;
   const int yc = best_s / n;
   const int xc = best_s - yc * n;
   const int win = 2 * centroid_radius + 1;
@@ -137,6 +121,44 @@ __global__ void __launch_bounds__(kThreads)
   shift_out[2 * p + 1] = cy;
   maxval_out[p] = best;
   if (index_out != nullptr) index_out[p] = best_s;
+}
+
+// Surface blockIdx.x of surf_g [P, n, n], one block a surface: a grid-stride
+// loop over every element, then block_argmax and centroid_store.  Kernels D
+// and E run it on the surfaces in their scratch; kernel B splits a surface
+// over several blocks instead (peak_refine_raw.cu).
+__global__ void __launch_bounds__(kThreads)
+    peak_refine_raw_kernel(const float* __restrict__ surf_g, int n, int search_radius,
+                           int centroid_radius, float* __restrict__ shift_out,
+                           float* __restrict__ maxval_out, int* __restrict__ index_out) {
+  const int p = blockIdx.x;
+  const float* __restrict__ surf = surf_g + static_cast<size_t>(p) * n * n;
+  const int half = n / 2;
+
+  float best = -INFINITY;
+  int best_s = n * n;
+  int has_nan = 0;
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int y = e / n;
+    const int x = e - y * n;
+    const int sy = y + half < n ? y + half : y + half - n;
+    const int sx = x + half < n ? x + half : x + half - n;
+    const bool keep = abs(sy - half) <= search_radius && abs(sx - half) <= search_radius;
+    const float v = keep ? surf[e] : 0.0f;
+    if (v != v) {
+      has_nan = 1;
+    } else {
+      const int s = sy * n + sx;
+      if (better(v, s, best, best_s)) {
+        best = v;
+        best_s = s;
+      }
+    }
+  }
+  block_argmax(best, best_s, has_nan);
+  if (threadIdx.x >= 32) return;
+  centroid_store(surf, n, search_radius, centroid_radius, best, best_s, has_nan, p, shift_out,
+                 maxval_out, index_out);
 }
 
 }  // namespace peak

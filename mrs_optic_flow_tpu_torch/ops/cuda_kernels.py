@@ -40,7 +40,7 @@ import functools
 import os
 import pathlib
 import subprocess
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,13 +85,16 @@ _SIGNATURES = {
                                             _P, _P, _P, _P]),
     },
     "peak_refine_raw": {
-        # surf, p, n, radii, shift, maxval, index, stream
-        "prr_peak_refine_raw": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
+        # surf, p, n, radii, k, band_rows, vec, scratch, counters, shift,
+        # maxval, index, stream
+        "prr_peak_refine_split": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]),
     },
     "sad_search": {
-        "sad_smem_bytes": (_LL, [_I, _I, _I]),
-        # curr, prev, g, s, r, tile_rows, out, stream
-        "sad_sad_search": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
+        "sad_smem_bytes": (_LL, [_I, _I]),
+        "sad_scratch_doubles": (_LL, [_I, _I, _I, _I]),
+        "sad_counters": (_LL, [_I, _I, _I, _I]),
+        # curr, prev, g, s, r, xb, scratch, counters, out, stream
+        "sad_search_tiled": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     },
     "phase_correlate_fullfused": {
         "pcff_scratch_bytes": (_LL, [_I]),
@@ -191,6 +194,22 @@ def _smem_fits(smem: int, device: torch.device, what: str) -> None:
     limit = _smem_limit(device)
     if smem + STATIC_SMEM_BYTES > limit:
         raise ValueError(f"{what} needs {smem} B of shared memory; the device allows {limit}")
+
+
+#: kernel, device, stream -> the int32 counters of its last-block merge
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _counters(name: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters for kernel ``name``'s last-block merge
+    on the current stream of ``device``: one buffer a (kernel, device,
+    stream), grown on demand.  Every launch leaves its counters zero again,
+    so calls on one stream share it; calls on two streams never do."""
+    key = (name, device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
 
 
 # --------------------------------------------------------------------------- #
@@ -349,6 +368,27 @@ def peak_refine_raw_ref(
     return shift, maxval, torch.argmax(surf.reshape(surf.shape[:-2] + (n * n,)), dim=-1)
 
 
+#: blocks kernel B aims at: two on each of an H100's 132 SMs
+PEAK_FILL_BLOCKS = 264
+
+
+def peak_window_rows(n: int, search_radius: int) -> int:
+    """Rows (and columns) of an ``n x n`` surface inside the search window:
+    ``2 r + 1`` while ``n // 2 > r``, else all ``n``."""
+    return 2 * search_radius + 1 if n // 2 > search_radius else n
+
+
+def peak_split(p: int, n: int, search_radius: int) -> Tuple[int, int]:
+    """Kernel B's blocks a surface and window rows a block, ``(k,
+    band_rows)``: the fewest rows a block with which ``p * k`` reaches
+    ``PEAK_FILL_BLOCKS`` (k = 1 once ``p`` does), ``k * band_rows`` covering
+    the window's rows.  240 blocks of 2 rows at ``p = 1, n = 480, r = 240``."""
+    rows = peak_window_rows(n, search_radius)
+    k = max(1, min(rows, -(-PEAK_FILL_BLOCKS // max(p, 1))))
+    band_rows = -(-rows // k)
+    return -(-rows // band_rows), band_rows
+
+
 def peak_refine_raw(
     raw: torch.Tensor,
     *,
@@ -362,8 +402,9 @@ def peak_refine_raw(
     fftshifted flat index ``[...]`` (undefined where maxval is NaN).
 
     CPU tensors run :func:`peak_refine_raw_ref`.  CUDA tensors launch
-    ``csrc/peak_refine_raw.cu`` on the current stream; each launch adds one
-    to ``peak_refine_raw.LAUNCHES``.
+    ``csrc/peak_refine_raw.cu`` on the current stream, each surface split
+    over the blocks :func:`peak_split` names; each launch adds one to
+    ``peak_refine_raw.LAUNCHES``.
     """
     if raw.device.type == "cpu":
         return peak_refine_raw_ref(
@@ -381,12 +422,16 @@ def peak_refine_raw(
     shift = torch.empty(lead + (2,), dtype=torch.float32, device=raw.device)
     maxval = torch.empty(lead, dtype=torch.float32, device=raw.device)
     index = torch.empty(lead, dtype=torch.int32, device=raw.device) if with_index else None
-    if p:
+    if p and n:
         lib = load_library("peak_refine_raw")
+        k, band_rows = peak_split(p, n, search_radius)
+        vec = int(n % 4 == 0 and raw.data_ptr() % 16 == 0)
+        scratch = torch.empty((3 * p * k,), dtype=torch.int32, device=raw.device)
+        counters = _counters("peak_refine_raw", raw.device, p)
         with torch.cuda.device(raw.device):
-            err = lib.prr_peak_refine_raw(
-                raw.data_ptr(), p, n, search_radius, centroid_radius,
-                shift.data_ptr(), maxval.data_ptr(),
+            err = lib.prr_peak_refine_split(
+                raw.data_ptr(), p, n, search_radius, centroid_radius, k, band_rows, vec,
+                scratch.data_ptr(), counters.data_ptr(), shift.data_ptr(), maxval.data_ptr(),
                 index.data_ptr() if with_index else None,
                 torch.cuda.current_stream(raw.device).cuda_stream,
             )
@@ -403,22 +448,86 @@ peak_refine_raw.LAUNCHES = 0
 # --------------------------------------------------------------------------- #
 
 
-def sad_smem_bytes(s: int, r: int, tile_rows: int) -> int:
-    """Kernel C's dynamic shared memory with ``tile_rows`` block rows a
-    tile: the per-lane float64 accumulators ``[2R+1, 32]`` and the rows of
-    block and region (``sad_smem_bytes`` in ``csrc/sad_search.cu``)."""
-    return (2 * r + 1) * 32 * 8 + tile_rows * (2 * s + 2 * r) * 4
+#: kernel C's constants, as ``csrc/sad_search.cu`` states them: row shifts
+#: and column shifts a warp (its register tile), block rows a warp (one a
+#: lane), warps a block at most, columns a band at most
+SAD_TI, SAD_TJ, SAD_ROWS, SAD_WARPS, SAD_MAX_BAND = 2, 11, 32, 8, 256
+#: blocks below which kernel C splits the block columns into bands: one on
+#: each of an H100's 132 SMs; a band keeps at least SAD_MIN_BAND columns
+SAD_FILL_BLOCKS = 132
+SAD_MIN_BAND = 16
 
 
-def sad_tile_rows(s: int, r: int, smem_limit: int) -> int:
-    """Block rows a tile for kernel C under a block's shared-memory limit:
-    the fewest tiles, of even size, whose footprint lets two blocks share an
-    SM (half the limit), at least 1 row.  Two blocks an SM beat one block
-    with a larger tile on the card (S = 120: 0.22 against 0.30 ms)."""
-    budget = smem_limit // 2 - STATIC_SMEM_BYTES
-    fit = max(1, (budget - sad_smem_bytes(s, r, 0)) // ((2 * s + 2 * r) * 4))
-    tiles = -(-s // fit)
-    return -(-s // tiles)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class SadGeometry(NamedTuple):
+    """Kernel C's launch geometry for one call (``make_geometry`` in
+    ``csrc/sad_search.cu`` derives the same from ``g, s, r, xb``)."""
+
+    xb: int  # columns a band
+    n_xb: int  # column bands
+    n_rg: int  # 32-row groups
+    parts: int  # n_rg * n_xb: the partial sums of each shift, merged in order
+    ni: int  # row-shift tiles a block
+    nj: int  # column-shift tiles a block
+    n_dib: int  # row-shift bands
+    n_djb: int  # column-shift bands
+    threads: int  # threads a block
+    blocks: int
+    smem: int  # dynamic shared memory a block, bytes
+    scratch: int  # float64 partials
+    counters: int
+
+
+def sad_smem_bytes(r: int, xb: int) -> int:
+    """Kernel C's dynamic shared memory a block at radius ``r`` and band
+    width ``xb``: the staged block rows and region rows (odd pitches), or the
+    warps' row partials, whichever is larger (``sad_smem_bytes`` in
+    ``csrc/sad_search.cu``)."""
+    ni, nj = _sad_tiles(r)
+
+    def odd(n):
+        return n | 1
+
+    return 4 * max(SAD_ROWS * odd(xb) + (SAD_ROWS + ni * SAD_TI - 1) * odd(xb + nj * SAD_TJ),
+                   ni * nj * SAD_TI * SAD_TJ * (SAD_ROWS + 1))
+
+
+def _sad_tiles(r: int) -> Tuple[int, int]:
+    """(row-shift tiles, column-shift tiles) a block: as many column tiles
+    as the shifts need, up to SAD_WARPS, then row tiles up to SAD_WARPS
+    warps."""
+    d = 2 * r + 1
+    nj = min(_cdiv(d, SAD_TJ), SAD_WARPS)
+    return min(_cdiv(d, SAD_TI), SAD_WARPS // nj), nj
+
+
+def sad_geometry(g: int, s: int, r: int) -> SadGeometry:
+    """Kernel C's geometry for ``g`` cells of ``s x s`` blocks at radius
+    ``r``: one block a (cell, row-shift band, column-shift band, row group,
+    column band); one band while the others give SAD_FILL_BLOCKS blocks,
+    else as many bands as reach it (each at least SAD_MIN_BAND columns).
+    396 blocks of 256 threads at the node's ``g, s, r = 9, 120, 21``; 132
+    blocks in 3 bands of 40 columns at ``g = 1``."""
+    d = 2 * r + 1
+    ni, nj = _sad_tiles(r)
+    n_dib, n_djb = _cdiv(_cdiv(d, SAD_TI), ni), _cdiv(_cdiv(d, SAD_TJ), nj)
+    n_rg = _cdiv(s, SAD_ROWS)
+    base = g * n_dib * n_djb * n_rg
+    n_xb = _cdiv(s, SAD_MAX_BAND)
+    while base * n_xb < SAD_FILL_BLOCKS and _cdiv(s, n_xb + 1) >= SAD_MIN_BAND:
+        n_xb += 1
+    xb = _cdiv(s, n_xb)
+    n_xb = _cdiv(s, xb)
+    parts = n_rg * n_xb
+    regions = g * n_dib * n_djb
+    return SadGeometry(
+        xb=xb, n_xb=n_xb, n_rg=n_rg, parts=parts, ni=ni, nj=nj, n_dib=n_dib, n_djb=n_djb,
+        threads=32 * ni * nj, blocks=regions * parts, smem=sad_smem_bytes(r, xb),
+        scratch=regions * parts * ni * SAD_TI * nj * SAD_TJ, counters=regions,
+    )
 
 
 def sad_search(
@@ -434,8 +543,8 @@ def sad_search(
     :func:`~mrs_optic_flow_tpu_torch.ops.block_matching.sad_search`).
 
     CPU tensors run that plain twin.  CUDA tensors launch
-    ``csrc/sad_search.cu`` on the current stream, tiled over block rows
-    (:func:`sad_tile_rows`); each launch adds one to
+    ``csrc/sad_search.cu`` on the current stream, in the blocks
+    :func:`sad_geometry` names; each launch adds one to
     ``sad_search.LAUNCHES``.
     """
     if curr_blocks.device.type == "cpu" and prev_regions.device.type == "cpu":
@@ -456,16 +565,19 @@ def sad_search(
     if s <= 0 or r < 0:
         raise ValueError("block_size must be positive and scan_radius non-negative")
     d = 2 * r + 1
-    out = torch.empty((g, d, d), dtype=torch.float32, device=curr_blocks.device)
+    dev = curr_blocks.device
+    out = torch.empty((g, d, d), dtype=torch.float32, device=dev)
     if g:
         lib = load_library("sad_search")
-        tile_rows = sad_tile_rows(s, r, _smem_limit(curr_blocks.device))
-        _smem_fits(lib.sad_smem_bytes(s, r, tile_rows), curr_blocks.device,
-                   f"block {s}, radius {r}, {tile_rows} rows a tile")
-        with torch.cuda.device(curr_blocks.device):
-            err = lib.sad_sad_search(
-                curr_blocks.data_ptr(), prev_regions.data_ptr(), g, s, r, tile_rows,
-                out.data_ptr(), torch.cuda.current_stream(curr_blocks.device).cuda_stream,
+        geo = sad_geometry(g, s, r)
+        _smem_fits(geo.smem, dev, f"block {s}, radius {r}, bands of {geo.xb} columns")
+        scratch = torch.empty((geo.scratch,), dtype=torch.float64, device=dev)
+        counters = _counters("sad_search", dev, geo.counters)
+        with torch.cuda.device(dev):
+            err = lib.sad_search_tiled(
+                curr_blocks.data_ptr(), prev_regions.data_ptr(), g, s, r, geo.xb,
+                scratch.data_ptr(), counters.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         _check_launch(err, "sad_search")
         sad_search.LAUNCHES += 1

@@ -181,18 +181,13 @@ def test_twiddle_tables_up_to_the_frame(n):
     assert np.abs(tab[idx, 0] - c).max() < 6e-13 and np.abs(tab[idx, 1] - s).max() < 6e-13
 
 
-@pytest.mark.parametrize("s,r,rows", [(64, 21, 64), (120, 21, 60), (159, 21, 53), (160, 21, 54),
-                                      (240, 21, 48), (240, 40, 40)])
-def test_sad_tiling_rule(s, r, rows):
-    """Repair F3: kernel C takes any block in tiles of block rows, the
-    fewest even tiles with which two blocks share an SM (H100: 232,448 B a
-    block, 233,472 B an SM); 60 rows at the default S = 120."""
-    limit = cuda_kernels.H100_SMEM_OPTIN_BYTES
-    assert cuda_kernels.sad_tile_rows(s, r, limit) == rows
-    tiles = -(-s // rows)
-    assert (rows - 1) * tiles < s <= rows * tiles  # even tiles
-    two_blocks = 2 * (cuda_kernels.sad_smem_bytes(s, r, rows) + cuda_kernels.STATIC_SMEM_BYTES)
-    assert two_blocks <= limit
-    if tiles > 1:  # one tile fewer would not fit two blocks
-        fewer = -(-s // (tiles - 1))
-        assert 2 * (cuda_kernels.sad_smem_bytes(s, r, fewer) + cuda_kernels.STATIC_SMEM_BYTES) > limit
+@pytest.mark.parametrize("s,r,parts", [(64, 21, 2), (120, 21, 4), (159, 21, 5), (160, 21, 5),
+                                       (240, 21, 8), (240, 40, 8)])
+def test_sad_tiling_rule(s, r, parts):
+    """Repair F3: kernel C takes any block.  At nine cells each shift's sum
+    has one part a 32-row group of block rows (one column band), and every
+    block fits two to an SM (H100: 232,448 B a block, 233,472 B an SM)."""
+    geo = cuda_kernels.sad_geometry(9, s, r)
+    assert geo.parts == parts == -(-s // cuda_kernels.SAD_ROWS) and geo.xb == s
+    assert 2 * (geo.smem + cuda_kernels.STATIC_SMEM_BYTES) <= 233_472
+    assert geo.smem + cuda_kernels.STATIC_SMEM_BYTES <= cuda_kernels.H100_SMEM_OPTIN_BYTES
