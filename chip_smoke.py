@@ -5,13 +5,16 @@
     python3 chip_smoke.py --baseline NAME=PATH [--baseline NAME=PATH ...]
 
 ``--baseline`` builds kernel NAME (``phase_correlate_frames``,
-``peak_refine_raw`` or ``sad_search``) from another source, PATH, and times
-it in turns with the kernel from ``csrc/`` in the phase that times that
-kernel (4, 6, 7 and 13); PATH may have the current C interface or, for B
-and C, the one before their redesign.  The card gets no ``.git/``: write an
-earlier source into ``build/`` first, e.g. ``git show
-a7250c7:mrs_optic_flow_tpu_torch/csrc/sad_search.cu > build/baseline/sad_search.cu``
-(kernel B's ``peak_refine_raw.cu`` with its ``peak_refine.cuh`` beside it).
+``peak_refine_raw``, ``sad_search`` or ``phase_correlate_fullfused``) from
+another source, PATH, and times it in turns with the kernel from ``csrc/``
+in the phase that times that kernel (4, 6, 7, 10 and 13); PATH may have the
+current C interface or, for B and C, the one before their redesign.  The
+card gets no ``.git/``: write an earlier source into ``build/`` first, e.g.
+``git show a7250c7:mrs_optic_flow_tpu_torch/csrc/sad_search.cu >
+build/baseline/sad_search.cu`` (kernel B's ``peak_refine_raw.cu`` with its
+``peak_refine.cuh`` beside it; kernel D's design before its FFT,
+``32e2fe5:.../phase_correlate_fullfused.cu``, with that commit's
+``dft_stages.cuh`` and ``peak_refine.cuh``).
 
 Phases, each printing a line when it finishes:
 
@@ -21,8 +24,10 @@ Phases, each printing a line when it finishes:
    ``nvcc`` per source, all started together, and checks the engines' route
    constant (kernel A's largest patch), kernel A's blocks an SM (two at
    n = 120), kernel C's launch geometry (``sad_geometry``: shared memory,
-   scratch, counters) against its library and the device's limits, and
-   kernels B's and C's fill targets against the SM count;
+   scratch, counters) against its library and the device's limits,
+   kernels B's and C's fill targets against the SM count, and kernel D's
+   FFT plan, route, shared memory and scratch for n = 1 to 480 against
+   ``cuda_kernels`` (``fft_plan``, ``pcff_small``, ``pcff_smem_bytes``);
 3. kernel A against its plain twin and the NumPy oracle (``tests/oracle.py``)
    on the shared accuracy pairs (480 px frames, 120 px patches, uint8), plus
    the edge cases: zero frames, identical frames, a NaN pixel, float32
@@ -58,14 +63,18 @@ Phases, each printing a line when it finishes:
 9. the node with methods 3 and 5 (480 / 120 / R 21 / step 24) on phase 5's
    texture: every twist after the first within 0.10 m/s of the truth, every
    frame through kernel C;
-10. kernel D against its twin and the NumPy oracle at n = 60 (P = 64), 45,
-    90, 100, 160 (P = 9), 240 (P = 4) and 480 (P = 1 and 16); uint8 and
-    float32 bit-identical; zero patches, a NaN pixel, a one-sided zero pair
-    (a surface of ties) and a shift beyond the search radius at n = 480;
-    ``FftMethod`` at 480 px with patch 160 through kernel A, and 240 and 100
-    (one 480 px window) through kernel D, against the engine on the CPU;
-    timed at n = 60 (P = 64) and n = 480 (P = 1) beside the twin and the
-    ``torch.fft`` route;
+10. kernel D against its twin and the NumPy oracle at every n of
+    ``D_SIZES`` (45 to 480: its one-block design up to 170, its staged
+    design from 171; 97 a prime, 171 = 9 x 19); uint8 and float32
+    bit-identical, P = 1 equal to the same pair in the batch; zero patches,
+    a NaN pixel and one-sided zero pairs (exactly -(n//2)) at n = 45, 60,
+    97, 170, 171 and 480, a shift beyond the search radius at n = 480;
+    ``FftMethod`` at 480 px with patch 160 through kernel A, 240 and 100
+    (one 480 px window) and 600 / 150 (``scale_factor`` 0.8) through kernel
+    D, against the engine on the CPU; timed at each shape of ``D_TIMED``
+    ([64, 60, 60] uint8 the node's) beside the twin, the ``torch.fft`` route
+    (through its calls and by its own device time) and the bound, and in
+    turns with the design before when ``--baseline`` names it;
 11. kernel E against its twin on ``[16, 120, 120]``, a NaN and a masked
     case, then ``conformance.check`` of the five backends on the card (all
     10 pairs within 0.05 px); timed beside the twin and the ``torch.fft``
@@ -81,7 +90,12 @@ Phases, each printing a line when it finishes:
     through the named kernel;
 13. kernel C at S = 160 and 240 (R = 21), the blocks of repair F3:
     bit-identical to its twin on integer inputs and on a repeated run;
-    timed.
+    timed;
+14. repair F6: TF32 matrix products switched on for the whole process; the
+    scale/rotation decodes of 6 frames, the method-4 node's twists on 8,
+    kernel D's twin and kernel E at n = 480 within TF32_TOL of the same run
+    with TF32 off (each pinned contraction runs in full float32), how far
+    an unpinned 480² DFT product moves printed; the setting restored.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
@@ -92,7 +106,8 @@ time through the wrapper (``ms``, CUDA events over back-to-back calls), its
 own device time (``own_ms``, ``torch.profiler``'s kernel durations), the
 twin's and the stock PyTorch route's (``library_ms``: the ``torch.fft``
 chain for A, D and E; ``torch.cdist`` for C; null for B, which no PyTorch
-call computes) at the node's shape, and its bound there (``bound_ms``: the
+call computes; ``library_own_ms`` its own device time) at the node's shape,
+and its bound there (``bound_ms``: the
 larger of its operations over 67 TFLOP/s and its bytes, each read or
 written once, over 3.35 TB/s; ``bound_by`` names which).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -223,14 +238,17 @@ def own_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     durations: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            durations.setdefault(e.name, []).append(e.self_device_time_total)
+    for _ in range(3):  # a trace that came back without device events is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                durations.setdefault(e.name, []).append(e.self_device_time_total)
+        if durations:
+            break
     check(durations, "the profiler recorded no kernel")
     total_us = sum(float(np.median(d)) * max(1, round(len(d) / reps)) for d in durations.values())
     return total_us / 1e3
@@ -244,7 +262,8 @@ def build_baselines(specs: list) -> None:
     """Build each ``NAME=PATH`` source into ``build/torch_kernels/`` (all at
     once) and bind its C interface: the current one, or the one the kernel
     had before its redesign (kernel B's ``prr_peak_refine_raw``, kernel C's
-    ``sad_sad_search``)."""
+    ``sad_sad_search``, kernel D's ``pcff_phase_correlate_fullfused``
+    without the peak split, a library without ``pcff_route``)."""
     import ctypes
 
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
@@ -261,13 +280,15 @@ def build_baselines(specs: list) -> None:
         "prr_peak_refine_raw": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
         "sad_sad_search": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
     }
+    before_pcff = {"pcff_phase_correlate_fullfused": (_I, [_P, _P] + [_I] * 6 + [_P] * 5)}
     for name, (out, proc) in jobs.items():
         log = proc.communicate()[0]
         check(proc.returncode == 0, f"baseline {name}: nvcc failed\n{log}")
         for line in ptxas_lines(log):
             say(f"  ptxas baseline {name}: {line}")
         lib = ctypes.CDLL(str(out))
-        for fn, (restype, argtypes) in {**ck._SIGNATURES[name], **before}.items():
+        old = before_pcff if name == "phase_correlate_fullfused" and not hasattr(lib, "pcff_route") else {}
+        for fn, (restype, argtypes) in {**ck._SIGNATURES[name], **before, **old}.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
         BASELINES[name] = lib
@@ -385,7 +406,8 @@ def measure_throughput(dev) -> tuple:
     inputs (``phase_correlate_field(..., backend="fft")``: rfft2 twice, the
     cross-power, irfft2, then the plain shift, mask and peak; a chain of
     calls, not one) and the bound, and ``step_batch`` throughput.  Returns
-    (kernel ms through the wrapper, own ms, twin ms, library ms) at B = 1."""
+    (kernel ms through the wrapper, own ms, twin ms, library ms, library own
+    ms) at B = 1."""
     from oracle import make_accuracy_pairs
 
     import torch
@@ -439,10 +461,11 @@ def measure_throughput(dev) -> tuple:
     ms_twin_one = time_cuda(lambda: twin(curr[:1], prev[:1], patch=120), 50)
     c1, p1 = curr[:1].contiguous(), prev[:1].contiguous()
     own_one = own_ms(lambda: kernel(c1, p1, patch=120), 200)
+    lib_own_one = own_ms(lambda: library(c1, p1), 50)
     say(f"  B=1: kernel {out[1][0]:.4f} ms through the wrapper, own {own_one:.4f} ms; twin "
-        f"{ms_twin_one:.4f} ms")
+        f"{ms_twin_one:.4f} ms; torch.fft route own {lib_own_one:.4f} ms")
     say("[4 throughput] done")
-    return out[1][0], own_one, ms_twin_one, out[1][1]
+    return out[1][0], own_one, ms_twin_one, out[1][1], lib_own_one
 
 
 PEAK_SHIFT_TOL = 1e-4  # px, kernel B against its twin
@@ -1032,10 +1055,96 @@ def masked_pair(n: int, seed: int, strong=(70.0, 0.0)):
     return curr[None].astype(np.float32), base[None].astype(np.float32)
 
 
-def check_fullfused_kernel(dev) -> tuple:
-    """Phase 10.  Returns (max shift difference from the twin, kernel ms,
-    own ms, twin ms, torch.fft route ms) at the node's shape of phase 12(b)
-    (n = 60, P = 64)."""
+#: phase 10's kernel-D batches: (n, frame pairs of q x q patches, q = 480 // n):
+#: both designs, odd n, a prime (97, the generic radix alone), the
+#: ``scale_factor: 0.8`` patch (150), the last one-block n (170) and the first
+#: staged one (171 = 9 * 19, a generic radix 19)
+D_SIZES = ((60, 1), (45, 1), (90, 1), (97, 1), (100, 1), (150, 2), (160, 1), (170, 1), (171, 1),
+           (240, 1), (480, 16))
+#: kernel D's timed shapes: label -> (n, pairs, dtype); the first is the
+#: node's shape of phase 12(b)
+D_TIMED = {"64x60 u8": (60, 64, "uint8"), "1x480 u8": (480, 1, "uint8"),
+           "4x60 f32": (60, 4, "float32"), "16x150 u8": (150, 16, "uint8"),
+           "4x240 u8": (240, 4, "uint8"),
+           # the run-time plan (no kernel compiled for the size): odd, and a prime
+           "64x45 u8": (45, 64, "uint8"), "16x97 u8": (97, 16, "uint8")}
+#: the shapes at which ``--baseline phase_correlate_fullfused=PATH`` runs in turns
+D_TURNS = ("64x60 u8", "1x480 u8", "64x45 u8", "16x97 u8")
+
+
+def fullfused_runner(lib, curr, prev, search_radius: int = 55, centroid_radius: int = 3):
+    """A closure launching kernel D from ``lib`` (this design's or an
+    earlier one's: both have ``pcff_scratch_bytes`` and
+    ``pcff_phase_correlate_fullfused``, this one with the peak split after
+    the radii) on ``[P, N, N]`` pairs, its outputs and scratch allocated
+    once."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+
+    p, n, dev = curr.shape[0], curr.shape[-1], curr.device
+    pair_bytes = lib.pcff_scratch_bytes(n)
+    chunk = ck._chunk(p, pair_bytes)
+    scratch = torch.empty((chunk * pair_bytes,), dtype=torch.uint8, device=dev)
+    tab = ck._twiddles(n, dev)
+    shift = torch.empty((p, 2), dtype=torch.float32, device=dev)
+    maxval = torch.empty((p,), dtype=torch.float32, device=dev)
+    split = ck.peak_split(chunk, n, search_radius) if hasattr(lib, "pcff_route") else ()
+    args = (curr.data_ptr(), prev.data_ptr(), int(curr.dtype == torch.uint8), p, n, chunk,
+            search_radius, centroid_radius, *split, tab.data_ptr(), scratch.data_ptr(),
+            shift.data_ptr(), maxval.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+    def run():
+        check(lib.pcff_phase_correlate_fullfused(*args) == 0, "kernel D launch failed")
+        return shift
+    return run
+
+
+def time_fullfused(dev, c, p, label: str) -> dict:
+    """Kernel D on one batch: through the wrapper and by its own device
+    time, the twin, the ``torch.fft`` route through its wrapper
+    (``library_ms``) and by its own device time (``library_own_ms``), the
+    bound, and the design before this one in turns when ``--baseline``
+    names it."""
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        phase_correlate_fullfused as kernel,
+        phase_correlate_fullfused_ref as twin,
+    )
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import phase_correlate_field
+
+    n, pairs = c.shape[-1], c.shape[0]
+
+    def library():
+        return phase_correlate_field(c, p, backend="fft")
+
+    out = {
+        "ms": time_cuda(lambda: kernel(c, p), 100),
+        "own_ms": own_ms(lambda: kernel(c, p), 100),
+        "plain_ms": time_cuda(lambda: twin(c, p), 20),
+        "library_ms": time_cuda(library, 50),
+        "library_own_ms": own_ms(library, 50),
+    }
+    bound_ms, by = bound("phase_correlate_fullfused", p=pairs, n=n, itemsize=c.element_size())
+    out.update(bound_ms=bound_ms, bound_by=by)
+    route = "one block a pair" if ck.pcff_small(n) else "staged"
+    say(f"  D [{label}] ({route}): kernel {out['ms']:.4f} ms through the wrapper, own "
+        f"{out['own_ms']:.4f} ms; twin {out['plain_ms']:.4f} ms; torch.fft route {out['library_ms']:.4f} "
+        f"ms (own {out['library_own_ms']:.4f} ms); bound {bound_ms:.6f} ms ({by})")
+    if "phase_correlate_fullfused" in BASELINES and label in D_TURNS:
+        runs = {"baseline": fullfused_runner(BASELINES["phase_correlate_fullfused"], c, p),
+                "kernel": fullfused_runner(ck.load_library("phase_correlate_fullfused"), c, p)}
+        err = float((runs["baseline"]() - runs["kernel"]()).abs().max())
+        check(err <= SHIFT_TOL, f"D [{label}]: the baseline differs by {err} px")
+        turns = in_turns(f"kernel D [{label}] (max|shift difference| {err:.2e} px)", runs, 100)
+        out["baseline_own_ms"] = turns["baseline"]
+        out["turns_own_ms"] = turns["kernel"]
+    return out
+
+
+def check_fullfused_kernel(dev) -> dict:
+    """Phase 10.  Returns {"err": max shift difference from the twin,
+    label: ``time_fullfused``'s numbers for each of D_TIMED}."""
     import torch
 
     from mrs_optic_flow_tpu_torch.models import FftMethod, FftMethodConfig
@@ -1044,38 +1153,56 @@ def check_fullfused_kernel(dev) -> tuple:
         phase_correlate_fullfused as kernel,
         phase_correlate_fullfused_ref as twin,
     )
-    from mrs_optic_flow_tpu_torch.ops.phase_correlate import phase_correlate_field
 
     def on(x):
         return torch.from_numpy(x).to(dev)
 
     errs = []
     batches = {}
-    for n, pairs in ((60, 1), (45, 1), (90, 1), (100, 1), (160, 1), (240, 1), (480, 16)):
+    for n, pairs in D_SIZES:
         c8, p8, oracle = patch_pairs(n, pairs, seed=10 + n)
         c, p = on(c8), on(p8)
         batches[n] = (c, p)
-        errs.append(compare_pc(kernel, twin, c, p, f"n={n} P={c.shape[0]}", oracle))
+        route = "one block a pair" if cuda_kernels.pcff_small(n) else "staged"
+        errs.append(compare_pc(kernel, twin, c, p, f"n={n} P={c.shape[0]} ({route})", oracle))
         ks8 = kernel(c, p)
         ksf = kernel(c.float(), p.float())
         check(all(torch.equal(a, b) for a, b in zip(ks8, ksf)), f"n={n}: uint8 and float32 differ")
-        if n == 480:
-            one = kernel(c[:1].contiguous(), p[:1].contiguous())
-            check(all(torch.equal(a, b[:1]) for a, b in zip(one, ks8)), "n=480: P=1 differs from P=16")
-    say("  every n: uint8 and float32 bit-identical; n=480 P=1 equal to the same pair in P=16")
+        if c.shape[0] > 1:
+            one = kernel(c[1:2].contiguous(), p[1:2].contiguous())
+            check(all(torch.equal(a, b[1:2]) for a, b in zip(one, ks8)),
+                  f"n={n}: P=1 differs from the same pair in P={c.shape[0]}")
+    say("  every n: uint8 and float32 bit-identical; P=1 equal to the same pair in the batch")
+    # the staged design over several chunks: every chunk's peak takes the
+    # first chunk's split, and a pair's result stays the same
+    c, p = batches[480]
+    pair_bytes = cuda_kernels.pcff_scratch_bytes(480)
+    chunk = cuda_kernels._chunk(2 * c.shape[0], pair_bytes)
+    check(chunk < 2 * c.shape[0], f"n=480: one chunk of {chunk} pairs")
+    twice = kernel(torch.cat([c, c]), torch.cat([p, p]))
+    once = kernel(c, p)
+    check(all(torch.equal(a, torch.cat([b, b])) for a, b in zip(twice, once)),
+          f"n=480: {2 * c.shape[0]} pairs in chunks of {chunk} differ from {c.shape[0]} at once")
+    say(f"  n=480: {2 * c.shape[0]} pairs in chunks of {chunk} (peak split "
+        f"{cuda_kernels.peak_split(chunk, 480, 55)}) equal the same pairs at once")
 
-    for n in (45, 480):
+    for n in (45, 60, 97, 170, 171, 480):
         zero = torch.zeros((2, n, n), dtype=torch.uint8, device=dev)
         zs, zm = (x.cpu().numpy() for x in kernel(zero, zero))
         check(np.all(zs == -(n // 2)) and np.all(zm == 0.0), f"n={n}: zero patches give {zs[0]}, {zm[0]}")
         c, p = batches[n]
-        c = c[:3].float().clone()
+        c = c[:4].float().clone()
+        p = p[:4].float().clone()
         c[1, n // 3, n // 2] = float("nan")  # a NaN pixel in pair 1
-        c[2] = 0.0  # pair 2: one patch zero, a surface of ties
-        ns, nm = (x.cpu().numpy() for x in kernel(c, p[:3].float().contiguous()))
+        c[2] = 0.0  # pair 2: curr zero, a surface of ties
+        p[3] = 0.0  # pair 3: prev zero
+        ns, nm = (x.cpu().numpy() for x in kernel(c, p))
         check(np.isnan(ns[1]).all() and np.isnan(nm[1]), f"n={n}: NaN pair gives {ns[1]}, {nm[1]}")
-        check(np.isfinite(ns[0]).all() and np.all(ns[2] == -(n // 2)), f"n={n}: {ns[0]}, {ns[2]}")
-        errs.append(compare_pc(kernel, twin, c, p[:3].float().contiguous(), f"n={n} NaN/tie"))
+        check(np.isfinite(ns[0]).all() and np.all(ns[2:] == -(n // 2)) and np.all(nm[2:] == 0.0),
+              f"n={n}: {ns[0]}, one-sided zero pairs give {ns[2:]}, {nm[2:]}")
+        errs.append(compare_pc(kernel, twin, c, p, f"n={n} NaN/one-sided zero"))
+    say("  zero, NaN and one-sided zero pairs at n = 45, 60, 97, 170, 171 and 480 as the twin: "
+        "exactly -(n//2) with maxval 0")
     mc, mp = (on(x) for x in masked_pair(480, seed=7))
     errs.append(compare_pc(kernel, twin, mc, mp, "n=480 masked, radius 55"))
     errs.append(compare_pc(kernel, twin, mc, mp, "n=480 unmasked, radius 240", search_radius=240))
@@ -1087,16 +1214,18 @@ def check_fullfused_kernel(dev) -> tuple:
     check(np.abs(unmasked - [70.0, 0.0]).max() < 0.5, f"unmasked peak {unmasked}")
     err = max(errs)
 
-    # repair F2: method 4 at 480 px with large patches, each through the
-    # kernel the route rule names (160 within kernel A's bound since its FFT)
+    # FftMethod with large patches, each through the kernel the route rule
+    # names (repair F2; 600/150 is the loader's frame and patch at
+    # scale_factor 0.8)
     from oracle import fourier_shift, smooth_random_image
 
-    base = smooth_random_image(np.random.default_rng(3), 480, cutoff=0.3).astype(np.float64)
-    frames = np.stack([fourier_shift(base, 2.5 * i, -1.5 * i) for i in range(3)]).astype(np.float32)
-    for patch, route in ((160, "phase_correlate_frames"), (240, "phase_correlate_fullfused"),
-                         (100, "phase_correlate_fullfused")):
+    for size, patch, route in ((480, 160, "phase_correlate_frames"), (480, 240, "phase_correlate_fullfused"),
+                               (480, 100, "phase_correlate_fullfused"),
+                               (600, 150, "phase_correlate_fullfused")):
+        base = smooth_random_image(np.random.default_rng(3), size, cutoff=0.3).astype(np.float64)
+        frames = np.stack([fourier_shift(base, 2.5 * i, -1.5 * i) for i in range(3)]).astype(np.float32)
         wrapper = getattr(cuda_kernels, route)
-        cfg = FftMethodConfig(frame_size=480, sample_point_size=patch)
+        cfg = FftMethodConfig(frame_size=size, sample_point_size=patch)
         outs = []
         for d in (dev, torch.device("cpu")):
             eng = FftMethod(cfg, device=d)
@@ -1105,37 +1234,28 @@ def check_fullfused_kernel(dev) -> tuple:
             for f in frames:
                 state, res = eng.step(state, torch.from_numpy(f).to(d))
             if d == dev:
-                check(wrapper.LAUNCHES - before == len(frames), f"patch {patch}: not through {route}")
+                check(wrapper.LAUNCHES - before == len(frames), f"{size}/{patch}: not through {route}")
             outs.append(res.shifts_raw.cpu().numpy())
         e = float(np.abs(outs[0] - outs[1]).max())
-        say(f"  FftMethod 480/{patch} ({eng.num_windows} windows of {eng.config.sample_point_size}) "
+        say(f"  FftMethod {size}/{patch} ({eng.num_windows} windows of {eng.config.sample_point_size}) "
             f"through {route}: max|card - CPU| {e:.3g} px, shift {outs[0][0].round(3).tolist()}")
-        check(e <= SHIFT_TOL, f"FftMethod 480/{patch}: card and CPU differ by {e} px")
+        check(e <= SHIFT_TOL, f"FftMethod {size}/{patch}: card and CPU differ by {e} px")
 
-    c60, p60 = batches[60]
-    ms = time_cuda(lambda: kernel(c60, p60), 200)
-    own = own_ms(lambda: kernel(c60, p60), 200)
-    plain_ms = time_cuda(lambda: twin(c60, p60), 50)
-    lib_ms = time_cuda(lambda: phase_correlate_field(c60, p60, backend="fft"), 50)
-    c480, p480 = (x[:1].contiguous() for x in batches[480])
-    ms480 = time_cuda(lambda: kernel(c480, p480), 100)
-    plain480 = time_cuda(lambda: twin(c480, p480), 50)
-    lib480 = time_cuda(lambda: phase_correlate_field(c480, p480, backend="fft"), 50)
-    b60 = bound("phase_correlate_fullfused", p=64, n=60, itemsize=1)
-    b480 = bound("phase_correlate_fullfused", p=1, n=480, itemsize=1)
-    say(f"  max|shift - twin| {err:.3g} px; [64, 60, 60]: kernel {ms:.4f} ms (own {own:.4f} ms), "
-        f"twin {plain_ms:.4f} ms, "
-        f"torch.fft route {lib_ms:.4f} ms, bound {b60[0]:.5f} ms ({b60[1]}); [1, 480, 480]: kernel "
-        f"{ms480:.4f} ms, twin {plain480:.4f} ms, torch.fft route {lib480:.4f} ms, bound "
-        f"{b480[0]:.5f} ms ({b480[1]})")
-    say("[10 kernel D] matches twin and oracle at n = 45 to 480; uint8, zero, NaN, tie, masked cases hold")
-    return err, ms, own, plain_ms, lib_ms
+    out = {"err": err}
+    for label, (n, pairs, dtype) in D_TIMED.items():
+        c, p = (x[:pairs].to(getattr(torch, dtype)).contiguous() for x in batches[n])
+        check(c.shape[0] == pairs, f"D [{label}]: {c.shape[0]} pairs")
+        out[label] = time_fullfused(dev, c, p, label)
+    say(f"  max|shift - twin| {err:.3g} px")
+    say("[10 kernel D] matches twin and oracle at n = 45 to 480, both designs; uint8, zero, NaN, tie, "
+        "masked cases hold")
+    return out
 
 
 def check_fused_kernel(dev) -> tuple:
     """Phase 11.  Returns (E's launches in the conformance check, max shift
     difference from the twin, kernel ms, own ms, twin ms, torch.fft route
-    ms) on ``[16, 120, 120]``."""
+    ms and its own ms) on ``[16, 120, 120]``."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import conformance
@@ -1172,11 +1292,12 @@ def check_fused_kernel(dev) -> tuple:
     own = own_ms(lambda: kernel(c, p), 200)
     plain_ms = time_cuda(lambda: twin(c, p), 50)
     lib_ms = time_cuda(lambda: phase_correlate_field(c, p, backend="fft"), 50)
+    lib_own = own_ms(lambda: phase_correlate_field(c, p, backend="fft"), 50)
     say(f"  max|shift - twin| {err:.3g} px; [16, 120, 120]: kernel {ms:.4f} ms (own {own:.4f} ms, "
         f"with the wrapper's forward DFTs), twin {plain_ms:.4f} ms, "
-        f"torch.fft route {lib_ms:.4f} ms")
+        f"torch.fft route {lib_ms:.4f} ms (own {lib_own:.4f} ms)")
     say("[11 kernel E] matches its twin; conformance holds on the card")
-    return launches, err, ms, own, plain_ms, lib_ms
+    return launches, err, ms, own, plain_ms, lib_ms, lib_own
 
 
 def run_long_range_nodes(dev) -> tuple:
@@ -1272,6 +1393,79 @@ def check_sad_large(dev) -> dict:
     return out
 
 
+TF32_TOL = 1e-6  # decodes, twists (m/s) and shifts (px) with TF32 on process-wide: unchanged
+
+
+def tf32_sensitive_outputs(dev) -> dict:
+    """What the port computes with float32 matrix products, each as one
+    array: the scale/rotation decodes of 6 rotating and zooming frames (480²
+    log-polar DFTs), the method-4 node's twists on 8 frames (3x3 geometry),
+    kernel D's twin and kernel E (whose wrapper makes the forward spectra)
+    on a 480 px pair."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from mrs_optic_flow_tpu_torch.models.scale_rotation import (
+        ScaleRotationConfig,
+        ScaleRotationEstimator,
+    )
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        phase_correlate_fullfused_ref,
+        phase_correlate_fused,
+    )
+
+    est = ScaleRotationEstimator(ScaleRotationConfig(), device=dev)
+    state, decodes = est.init_state(), []
+    for frame in render_affine(6, SR_STEP_DEG, SR_STEP_ZOOM):
+        state, res = est.step(state, torch.from_numpy(frame).to(dev))
+        decodes.append([float(res.scale), float(res.rotation)])
+    node, published, _, _ = drive_node(dev, NodeConfig(), render_frames(8), "method 4 (TF32 phase)")
+    twists = [list(tw.linear) + list(tw.angular) for t, tw in published if t == "velocity_out"]
+    mc, mp = (torch.from_numpy(x).to(dev) for x in masked_pair(480, seed=7))
+    return {
+        "decodes": np.array(decodes),
+        "twists": np.array(twists),
+        "D twin": np.concatenate([x.cpu().numpy().ravel() for x in phase_correlate_fullfused_ref(mc, mp)]),
+        "E": np.concatenate([x.cpu().numpy().ravel() for x in phase_correlate_fused(mc, mp)]),
+    }
+
+
+def check_tf32(dev) -> None:
+    """Phase 14 (repair F6): with TF32 matrix products switched on for the
+    whole process, every pinned contraction of the port still runs in full
+    float32: decodes, twists and D's and E's twins unchanged.  Prints how far
+    one unpinned 480² DFT matrix product lands under TF32, then restores the
+    setting."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import _dft_tensors
+
+    check(torch.get_float32_matmul_precision() == "highest", "TF32 phase: the default changed")
+    before = tf32_sensitive_outputs(dev)
+    x = torch.from_numpy(render_affine(1, 0.0, 1.0)[0].astype(np.float32)).to(dev)
+    c, _ = _dft_tensors(480, dev)
+    full = x @ c
+    torch.set_float32_matmul_precision("high")  # TF32 on (allow_tf32 follows)
+    try:
+        unpinned = x @ c
+        after = tf32_sensitive_outputs(dev)
+        check(torch.get_float32_matmul_precision() == "high" and torch.backends.cuda.matmul.allow_tf32,
+              "the pinned sites did not restore the caller's TF32 setting")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 still on after the phase")
+    rel = float((unpinned - full).abs().max() / full.abs().max())
+    say(f"  an unpinned 480² DFT product under TF32: max |difference| {rel:.3g} of the largest entry")
+    for key, want in before.items():
+        got = after[key]
+        same = np.array_equal(np.isnan(got), np.isnan(want))
+        diff = float(np.nanmax(np.abs(got - want))) if got.size else 0.0
+        say(f"  {key} with TF32 on: max |difference| {diff:.3g}"
+            f"{' (bit-identical)' if np.array_equal(got, want, equal_nan=True) else ''}")
+        check(got.shape == want.shape and same and diff <= TF32_TOL, f"TF32 changed the {key}")
+    say("[14 TF32] decodes, twists and D's and E's twins unchanged with TF32 on; setting restored")
+
+
 def check_route_constants() -> None:
     """Phase 2: the engines' route constant and kernels B's and C's geometry
     helpers agree with the libraries' formulas and the device's limits."""
@@ -1305,6 +1499,18 @@ def check_route_constants() -> None:
     check(ck.SAD_FILL_BLOCKS == props.multi_processor_count
           and ck.PEAK_FILL_BLOCKS == 2 * props.multi_processor_count,
           f"fill targets {ck.SAD_FILL_BLOCKS}, {ck.PEAK_FILL_BLOCKS} for {props.multi_processor_count} SMs")
+    # kernel D: route, plan and shared memory of the library are the wrapper's
+    import ctypes
+
+    pcff = ck.load_library("phase_correlate_fullfused")
+    radices = (ctypes.c_int * 32)()
+    for n in range(1, 481):
+        stages = pcff.pcff_plan(n, radices)
+        check(tuple(radices[:stages]) == ck.fft_plan(n), f"kernel D's plan of {n}: {list(radices[:stages])}")
+        check(pcff.pcff_route(n) == (0 if ck.pcff_small(n) else 1), f"kernel D's route at n={n}")
+        check(pcff.pcff_smem_bytes(n) == ck.pcff_smem_bytes(n), f"kernel D's shared memory at n={n}")
+        check(pcff.pcff_scratch_bytes(n) == ck.pcff_scratch_bytes(n), f"kernel D's scratch at n={n}")
+        check(ck.pcff_smem_bytes(n) + ck.STATIC_SMEM_BYTES <= limit, f"kernel D at n={n} does not fit")
     peak_grid = {(p, n, r): ck.peak_split(p, n, r) for p, n, r in ((1, 480, 240), (4, 480, 240), (64, 120, 55))}
     occupancy = {n: pcf.pcf_blocks_per_sm(n) for n in range(8, ck.PCF_MAX_PATCH + 1, 8)}
     check(min(occupancy.values()) >= 1 and occupancy[120] >= 2,
@@ -1312,7 +1518,9 @@ def check_route_constants() -> None:
     say(f"  kernel A takes patches up to {ck.PCF_MAX_PATCH} px ({ck.pcf_smem_bytes(ck.PCF_MAX_PATCH)} B "
         f"of {limit}), blocks an SM by patch {occupancy}; kernel C at the node's geometry: "
         f"{node.blocks} blocks of {node.threads} threads, {node.smem} B, {per_sm} an SM by shared "
-        f"memory ({sm_limit} B an SM); kernel B (blocks a surface, rows a block): {peak_grid}")
+        f"memory ({sm_limit} B an SM); kernel B (blocks a surface, rows a block): {peak_grid}; kernel D: "
+        f"one block a pair up to n = {ck.PCFF_MAX_SMALL}, plans and shared "
+        f"memory match for n = 1..480")
 
 
 def ptxas_lines(log: str) -> list:
@@ -1408,7 +1616,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     err_a = check_kernel(dev)
-    ms_a, own_a, plain_a, lib_a = measure_throughput(dev)
+    ms_a, own_a, plain_a, lib_a, lib_own_a = measure_throughput(dev)
     if "phase_correlate_frames" in BASELINES:
         compare_kernel_a(dev)
     launches_a = run_node(dev)
@@ -1417,24 +1625,28 @@ def main() -> int:
     c = check_sad_kernel(dev)
     launches_b = run_scale_rotation_node(dev)
     launches_c = run_block_matching_nodes(dev)
-    err_d, ms_d, own_d, plain_d, lib_d = check_fullfused_kernel(dev)
-    launches_e, err_e, ms_e, own_e, plain_e, lib_e = check_fused_kernel(dev)
+    d = check_fullfused_kernel(dev)
+    launches_e, err_e, ms_e, own_e, plain_e, lib_e, lib_own_e = check_fused_kernel(dev)
     launches_d, _ = run_long_range_nodes(dev)
     check_sad_large(dev)
+    check_tf32(dev)
 
     # each kernel at the shape its row times: (launches, error, ms through
-    # the wrapper, own ms, plain ms, library ms or None, the bound there)
+    # the wrapper, own ms, plain ms, library ms or None, library own ms or
+    # None, the bound there)
     b1 = b["1x480"]
+    d60 = d["64x60 u8"]
     rows = {
-        "phase_correlate_frames": (launches_a, err_a, ms_a, own_a, plain_a, lib_a,
+        "phase_correlate_frames": (launches_a, err_a, ms_a, own_a, plain_a, lib_a, lib_own_a,
                                    bound("phase_correlate_frames", b=1, n=120, q=4, itemsize=1)),
-        "peak_refine_raw": (launches_b, b["err"], b1["ms"], b1["own_ms"], b1["plain_ms"], None,
+        "peak_refine_raw": (launches_b, b["err"], b1["ms"], b1["own_ms"], b1["plain_ms"], None, None,
                             bound("peak_refine_raw", p=1, n=480)),
         "sad_search": (launches_c, c["err"], c["ms"], c["own_ms"], c["plain_ms"], c["library_ms"],
-                       bound("sad_search", g=9, s=120, r=21)),
-        "phase_correlate_fullfused": (launches_d, err_d, ms_d, own_d, plain_d, lib_d,
-                                      bound("phase_correlate_fullfused", p=64, n=60, itemsize=1)),
-        "phase_correlate_fused": (launches_e, err_e, ms_e, own_e, plain_e, lib_e,
+                       c["library_own_ms"], bound("sad_search", g=9, s=120, r=21)),
+        "phase_correlate_fullfused": (launches_d, d["err"], d60["ms"], d60["own_ms"], d60["plain_ms"],
+                                      d60["library_ms"], d60["library_own_ms"],
+                                      (d60["bound_ms"], d60["bound_by"])),
+        "phase_correlate_fused": (launches_e, err_e, ms_e, own_e, plain_e, lib_e, lib_own_e,
                                   bound("phase_correlate_fused", p=16, n=120, itemsize=4)),
     }
     say(json.dumps({"kernels": [{
@@ -1450,7 +1662,9 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
-    } for name, (launches, err, ms, own, plain_ms, lib_ms, (bound_ms, bound_by)) in rows.items()]}))
+        "library_own_ms": lib_own,
+    } for name, (launches, err, ms, own, plain_ms, lib_ms, lib_own, (bound_ms, bound_by))
+        in rows.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

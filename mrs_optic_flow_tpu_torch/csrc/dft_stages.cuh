@@ -1,5 +1,5 @@
-// Tiled DFT stages for patch batches of any size n, shared by kernel D
-// (phase_correlate_fullfused.cu) and kernel E (phase_correlate_fused.cu).
+// Tiled DFT stages for patch batches of any size n: the inverse of kernel E
+// (phase_correlate_fused.cu).
 //
 // Each stage is one launch over a grid of (output tile, matrix): the DFT of
 // every matrix of the batch as a small complex matrix product on the CUDA
@@ -41,9 +41,6 @@ constexpr float kFltEpsilon = 1.1920928955078125e-07f;  // FLT_EPSILON
 
 static_assert(TM == 16 * RT && TN == 16 * CT && kThreads == 256, "16 x 16 threads");
 
-__device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
 // W(j k) (sign = +1) or conj(W)(j k) (sign = -1)
 __device__ __forceinline__ float2 twiddle(const float2* __restrict__ tab, int j, int k, int n,
                                           float sign) {
@@ -65,77 +62,13 @@ struct TileOrigin {
   }
 };
 
-// Stage 1, forward DFT along x of real patches, half spectrum: matrix
-// blockIdx.y = 2 * pair + which, which = 0 for curr and 1 for prev, each
-// [n, n] at curr/prev + pair * n * n ->
-// out[blockIdx.y][y][l] = sum_x src[y][x] W(x l), 0 <= l < nh.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rows_forward_real(const T* __restrict__ curr, const T* __restrict__ prev, int n, int nh,
-                      const float2* __restrict__ tab, float2* __restrict__ out) {
-  __shared__ float as[KC][TM + 1];  // src[r0 + m][k0 + k] at as[k][m]
-  __shared__ float2 bs[KC][TN];     // W((k0 + k) (c0 + c)) at bs[k][c]
-  const TileOrigin o(nh);
-  const int mat = blockIdx.y;
-  const T* __restrict__ src = ((mat & 1) ? prev : curr) + static_cast<size_t>(mat >> 1) * n * n;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float ar[RT][CT] = {}, ai[RT][CT] = {};
-  for (int k0 = 0; k0 < n; k0 += KC) {
-    for (int e = threadIdx.x; e < TM * KC; e += kThreads) {
-      const int m = e / KC, k = e % KC;
-      const int r = o.r0 + m, x = k0 + k;
-      as[k][m] = (r < n && x < n) ? to_f32(src[static_cast<size_t>(r) * n + x]) : 0.0f;
-    }
-    for (int e = threadIdx.x; e < KC * TN; e += kThreads) {
-      const int k = e / TN, c = e % TN;
-      const int x = k0 + k, l = o.c0 + c;
-      bs[k][c] = (x < n && l < nh) ? twiddle(tab, x, l, n, 1.0f) : make_float2(0.0f, 0.0f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < KC; ++k) {
-      float a[RT];
-      float2 b[CT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) a[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) b[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          ar[i][j] = fmaf(a[i], b[j].x, ar[i][j]);
-          ai[i][j] = fmaf(a[i], b[j].y, ai[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-  float2* __restrict__ dst = out + static_cast<size_t>(mat) * n * nh;
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int r = o.r0 + ty + 16 * i, l = o.c0 + tx + 16 * j;
-      if (r < n && l < nh) dst[static_cast<size_t>(r) * nh + l] = make_float2(ar[i][j], ai[i][j]);
-    }
-}
-
-// Complex DFT along the first axis of [n, nc] complex matrices:
+// Complex DFT along the first axis of [n, nc] complex matrices, matrix
+// blockIdx.y of in -> matrix blockIdx.y of out:
 // out[k][l] = sum_y tw(k y) in[y][l], tw = W (sign +1) or conj(W) (sign -1).
-//
-// kPair = false: matrix blockIdx.y of in -> matrix blockIdx.y of out.
-// kPair = true (the forward pass of kernel D): matrices 2 p and 2 p + 1 of in
-// (the half spectra T1, T2 of pair p = blockIdx.y) give F1 and F2 in
-// registers, and the epilogue writes d_l * R to matrix p of out, with
-// R = F1 * conj(F2) * rsqrt(|F1 * conj(F2)|^2 + FLT_EPSILON) and d_l the
-// conjugate-fold weight of x-frequency column l: 1 for the self-conjugate
-// columns 0 and n/2 (n even), 2 for every other column (for odd n every
-// column l >= 1 has its mirror n - l outside the half spectrum).
-template <bool kPair>
 __global__ void __launch_bounds__(kThreads)
     cols_dft(const float2* __restrict__ in, int n, int nc, float sign,
              const float2* __restrict__ tab, float2* __restrict__ out) {
-  constexpr int kMats = kPair ? 2 : 1;
+  constexpr int kMats = 1;
   __shared__ float2 as[KC][TM + 1];     // tw((r0 + m) (k0 + k)) at as[k][m]
   __shared__ float2 bs[kMats][KC][TN];  // in[k0 + k][c0 + c] at bs[s][k][c]
   const TileOrigin o(nc);
@@ -186,26 +119,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
       const int r = o.r0 + ty + 16 * i, l = o.c0 + tx + 16 * j;
-      if (r >= n || l >= nc) continue;
-      if (kPair) {
-        const float f1r = ar[0][i][j], f1i = ai[0][i][j];
-        const float f2r = ar[kMats - 1][i][j], f2i = ai[kMats - 1][i][j];
-        const float rr = f1r * f2r + f1i * f2i;
-        const float ri = f1i * f2r - f1r * f2i;
-        const float den = rsqrtf(rr * rr + ri * ri + kFltEpsilon);
-        const float d = (l == 0 || (n % 2 == 0 && l == n / 2)) ? 1.0f : 2.0f;
-        dst[static_cast<size_t>(r) * nc + l] = make_float2(d * rr * den, d * ri * den);
-      } else {
-        dst[static_cast<size_t>(r) * nc + l] = make_float2(ar[0][i][j], ai[0][i][j]);
-      }
+      if (r < n && l < nc) dst[static_cast<size_t>(r) * nc + l] = make_float2(ar[0][i][j], ai[0][i][j]);
     }
 }
 
 // Last stage, inverse DFT along x, real part only, of [n, nc] complex
 // matrices: out[y][x] = scale * sum_l Re(in[y][l] conj(W)(l x))
 //                     = scale * sum_l (in.x tab.x + in.y tab.y).
-// With nc = n/2 + 1 and the fold weights already in `in` this is the
-// half-spectrum inverse of kernel D; with nc = n the full one of kernel E.
+// With nc = n it is the full inverse of kernel E.
 __global__ void __launch_bounds__(kThreads)
     rows_inverse_real(const float2* __restrict__ in, int n, int nc, float scale,
                       const float2* __restrict__ tab, float* __restrict__ out) {

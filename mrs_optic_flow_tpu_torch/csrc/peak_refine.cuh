@@ -1,5 +1,5 @@
 // Peak stage on raw correlation surfaces: the device code of kernel B
-// (peak_refine_raw.cu), shared with the staged kernels D and E
+// (peak_refine_raw.cu), shared with kernels D and E
 // (phase_correlate_fullfused.cu, phase_correlate_fused.cu), which run it on
 // the surfaces they leave in their scratch.
 //
@@ -13,9 +13,12 @@
 // surface in shifted coordinates without wrap-around, with an FLT_EPSILON-
 // seeded denominator.  The result is relative to the centre (N/2, N/2).  NaN
 // anywhere inside the search window gives NaN maxval and NaN shifts; NaN
-// outside it is masked to 0.  Kernels D and E take one thread block of
-// peak::kThreads threads a surface (peak_refine_raw_kernel); kernel B splits
-// each surface over several blocks with the same reduction and centroid.
+// outside it is masked to 0.  Kernels B and D split each surface over
+// several blocks (peak_split_kernel: k blocks a surface, as the wrapper's
+// peak_split picks them);
+// kernel E takes one block of peak::kThreads threads a surface
+// (peak_refine_raw_kernel); the one-block design of kernel D reads its
+// surface from shared memory through centroid_store's reader.
 
 #pragma once
 
@@ -79,10 +82,11 @@ __device__ __forceinline__ void block_argmax(float& best, int& best_s, int& has_
 // coordinates, one window entry per lane, then shift_out[2 p .. 2 p + 1],
 // maxval_out[p] and, when index_out is not null, the peak's fftshifted flat
 // index.
-__device__ __forceinline__ void centroid_store(const float* __restrict__ surf, int n,
-                                               int search_radius, int centroid_radius,
-                                               float best, int best_s, int has_nan, int p,
-                                               float* __restrict__ shift_out,
+// `read(y, x)` gives the raw surface entry at raw row y, column x.
+template <class Read>
+__device__ __forceinline__ void centroid_store(Read read, int n, int search_radius,
+                                               int centroid_radius, float best, int best_s,
+                                               int has_nan, int p, float* __restrict__ shift_out,
                                                float* __restrict__ maxval_out,
                                                int* __restrict__ index_out) {
   const int lane = threadIdx.x % 32;
@@ -98,7 +102,7 @@ __device__ __forceinline__ void centroid_store(const float* __restrict__ surf, i
     if (abs(sy - half) > search_radius || abs(sx - half) > search_radius) continue;
     const int y = sy >= half ? sy - half : sy + n - half;
     const int x = sx >= half ? sx - half : sx + n - half;
-    const float v = surf[y * n + x];
+    const float v = read(y, x);
     if (v > 0.0f) {
       sw += v;
       swx += v * static_cast<float>(sx);
@@ -123,10 +127,21 @@ __device__ __forceinline__ void centroid_store(const float* __restrict__ surf, i
   if (index_out != nullptr) index_out[p] = best_s;
 }
 
+// centroid_store on a row-major [n, n] surface in device memory
+__device__ __forceinline__ void centroid_store(const float* __restrict__ surf, int n,
+                                               int search_radius, int centroid_radius,
+                                               float best, int best_s, int has_nan, int p,
+                                               float* __restrict__ shift_out,
+                                               float* __restrict__ maxval_out,
+                                               int* __restrict__ index_out) {
+  centroid_store([surf, n](int y, int x) { return surf[y * n + x]; }, n, search_radius,
+                 centroid_radius, best, best_s, has_nan, p, shift_out, maxval_out, index_out);
+}
+
 // Surface blockIdx.x of surf_g [P, n, n], one block a surface: a grid-stride
-// loop over every element, then block_argmax and centroid_store.  Kernels D
-// and E run it on the surfaces in their scratch; kernel B splits a surface
-// over several blocks instead (peak_refine_raw.cu).
+// loop over every element, then block_argmax and centroid_store.  Kernel E
+// runs it on the surfaces in its scratch; kernels B and D split a surface
+// over several blocks instead (peak_split_kernel).
 __global__ void __launch_bounds__(kThreads)
     peak_refine_raw_kernel(const float* __restrict__ surf_g, int n, int search_radius,
                            int centroid_radius, float* __restrict__ shift_out,
@@ -160,5 +175,128 @@ __global__ void __launch_bounds__(kThreads)
   centroid_store(surf, n, search_radius, centroid_radius, best, best_s, has_nan, p, shift_out,
                  maxval_out, index_out);
 }
+
+// Rows (and columns) of an n x n surface inside the search window.
+__host__ __device__ inline int window_rows(int n, int search_radius) {
+  return n / 2 > search_radius ? 2 * search_radius + 1 : n;
+}
+
+// Whether k blocks of band_rows window rows each cover the window of an
+// n x n surface, no block empty: the split that the wrappers of kernels B
+// and D pass (ops/cuda_kernels.py::peak_split picks it).
+__host__ __device__ inline bool valid_split(int n, int search_radius, int k, int band_rows) {
+  const int rows = window_rows(n, search_radius);
+  return k >= 1 && band_rows >= 1 && static_cast<long long>(k) * band_rows >= rows &&
+         static_cast<long long>(k - 1) * band_rows < rows;
+}
+
+// Surface p = blockIdx.x / k (at surf_g + p * stride, [n, n] row-major), band
+// b = blockIdx.x % k of its window rows: each block reduces its band's
+// (value, shifted index) candidate and NaN flag into the part arrays, and the
+// last block of a surface to arrive (an atomic counter it resets) merges the
+// k candidates and runs the centroid warp.  V = 4 reads float4 columns
+// (n % 4 == 0, 16-byte aligned surfaces), else 1.
+constexpr int kSplitThreads = 256;
+
+template <int V>
+__global__ void __launch_bounds__(kSplitThreads)
+    peak_split_kernel(const float* __restrict__ surf_g, size_t stride, int n, int search_radius,
+                      int centroid_radius, int k, int band_rows, float* __restrict__ part_val,
+                      int* __restrict__ part_idx, int* __restrict__ part_nan,
+                      unsigned* __restrict__ counters, float* __restrict__ shift_out,
+                      float* __restrict__ maxval_out, int* __restrict__ index_out) {
+  __shared__ int is_last;
+  const int p = blockIdx.x / k;
+  const int b = blockIdx.x - p * k;
+  const float* __restrict__ surf = surf_g + static_cast<size_t>(p) * stride;
+  const int half = n / 2;
+  // the window's raw rows (and columns) are 0 .. hi and lo .. n - 1
+  const bool masked = half > search_radius;
+  const int hi = masked ? search_radius : n - 1;
+  const int lo = masked ? n - search_radius : n;
+  const int rows = masked ? 2 * search_radius + 1 : n;
+  const int n_a = hi / V + 1;                // chunks meeting 0 .. hi
+  const int c_b = n_a > lo / V ? n_a : lo / V;  // first chunk of lo .. n - 1 not among them
+  const int chunks = n_a + n / V - c_b;
+
+  float best = masked ? 0.0f : -INFINITY;
+  int best_s = masked ? 0 : n * n;
+  int has_nan = 0;
+  const int v0 = b * band_rows;
+  const int v1 = rows < v0 + band_rows ? rows : v0 + band_rows;
+  // thread t takes items t, t + blockDim.x, ... of the band's rows x chunks
+  int vr = v0 + threadIdx.x / chunks;
+  int cc = threadIdx.x % chunks;
+  const int step_r = blockDim.x / chunks;
+  const int step_c = blockDim.x - step_r * chunks;
+  while (vr < v1) {
+    const int y = vr <= hi ? vr : vr + lo - hi - 1;
+    const int sy = y + half < n ? y + half : y + half - n;
+    const int x0 = (cc < n_a ? cc : cc - n_a + c_b) * V;
+    float vals[V];
+    if constexpr (V == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(surf + y * n + x0);
+      vals[0] = f.x;
+      vals[1] = f.y;
+      vals[2] = f.z;
+      vals[3] = f.w;
+    } else {
+      vals[0] = surf[y * n + x0];
+    }
+#pragma unroll
+    for (int t = 0; t < V; ++t) {
+      const int x = x0 + t;
+      if (x > hi && x < lo) continue;
+      const float v = vals[t];
+      if (v != v) {
+        has_nan = 1;
+      } else {
+        const int s = sy * n + (x + half < n ? x + half : x + half - n);
+        if (better(v, s, best, best_s)) {
+          best = v;
+          best_s = s;
+        }
+      }
+    }
+    cc += step_c;
+    vr += step_r;
+    if (cc >= chunks) {
+      cc -= chunks;
+      ++vr;
+    }
+  }
+  block_argmax(best, best_s, has_nan);
+
+  if (threadIdx.x == 0) {
+    part_val[blockIdx.x] = best;
+    part_idx[blockIdx.x] = best_s;
+    part_nan[blockIdx.x] = has_nan;
+    __threadfence();
+    is_last = atomicAdd(counters + p, 1u) == static_cast<unsigned>(k - 1);
+  }
+  __syncthreads();
+  if (!is_last || threadIdx.x >= 32) return;
+  __threadfence();
+  best = -INFINITY;
+  best_s = n * n;
+  has_nan = 0;
+  for (int j = threadIdx.x; j < k; j += 32) {
+    const float v = __ldcg(part_val + p * k + j);
+    const int s = __ldcg(part_idx + p * k + j);
+    has_nan |= __ldcg(part_nan + p * k + j);
+    if (better(v, s, best, best_s)) {
+      best = v;
+      best_s = s;
+    }
+  }
+  warp_argmax(best, best_s);
+  has_nan = __any_sync(kFull, has_nan);
+  best = __shfl_sync(kFull, best, 0);
+  best_s = __shfl_sync(kFull, best_s, 0);
+  if (threadIdx.x == 0) counters[p] = 0u;
+  centroid_store(surf, n, search_radius, centroid_radius, best, best_s, has_nan, p,
+                       shift_out, maxval_out, index_out);
+}
+
 
 }  // namespace peak

@@ -10,13 +10,13 @@
 // F2 = f2r + i f2i, the normalized cross-power
 // R = F1 * conj(F2) * rsqrt(|F1 * conj(F2)|^2 + FLT_EPSILON), the full complex
 // inverse Re(conj(W) R conj(W)) / n^2 in float32 FMA (no TF32), then the peak
-// stage of kernel B (peak_refine.cuh) with the semantics of kernel D.
+// stage of kernel B (peak_refine.cuh), one block a surface.
 //
 // What bounds it on this card: the inverse DFT on the CUDA cores (about
-// 1.4 GFLOP for one 480 px pair) and, for large n, shared memory, as for
-// kernel D, whose tiled stages (dft_stages.cuh) it shares:
+// 1.4 GFLOP for one 480 px pair) and, for large n, shared memory, in the
+// tiled stages of dft_stages.cuh:
 //   1. cross_power: elementwise over the chunk -> R;
-//   2. cols_dft<false>: the inverse column pass (conj(W)) -> U;
+//   2. cols_dft: the inverse column pass (conj(W)) -> U;
 //   3. rows_inverse_real with nc = n: the inverse row pass, real part,
 //      1/n^2 -> surface;
 // then the peak kernel.  Scratch from the caller: 2 n^2 complex per pair,
@@ -80,7 +80,7 @@ int pcfu_phase_correlate_fused(const void* f1r, const void* f1i, const void* f2r
     cross_power<<<blocks, dft::kThreads, 0, st>>>(
         static_cast<const float*>(f1r) + off, static_cast<const float*>(f1i) + off,
         static_cast<const float*>(f2r) + off, static_cast<const float*>(f2i) + off, count, r);
-    dft::cols_dft<false><<<dim3(dft::num_tiles(n, n), c), dft::kThreads, 0, st>>>(
+    dft::cols_dft<<<dim3(dft::num_tiles(n, n), c), dft::kThreads, 0, st>>>(
         r, n, n, -1.0f, w, u);
     dft::rows_inverse_real<<<dim3(dft::num_tiles(n, n), c), dft::kThreads, 0, st>>>(
         u, n, n, scale, w, surf);

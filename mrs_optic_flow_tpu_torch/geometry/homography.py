@@ -9,7 +9,9 @@
   :func:`decompose_homography`, the Malis-Vargas analytical decomposition.
 
 Points are normalized camera coordinates.  Everything stays in float32 on
-the device of the inputs, with no host synchronisation.
+the device of the inputs, with no host synchronisation; the matrix products
+run at full float32 whatever the process's TF32 setting (``pinned``, the
+JAX package's ``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from mrs_optic_flow_tpu_torch.utils.precision import pinned
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -44,6 +48,7 @@ def _norm_h(h: torch.Tensor) -> torch.Tensor:
     return h / scale[..., None, None]
 
 
+@pinned
 def _solve_h4(src4: torch.Tensor, dst4: torch.Tensor) -> torch.Tensor:
     """Exact homography from 4 point pairs ``[..., 4, 2]`` -> ``[..., 3, 3]``
     by the division-free projective canonical-basis method:
@@ -80,6 +85,7 @@ def _solve_h4(src4: torch.Tensor, dst4: torch.Tensor) -> torch.Tensor:
     return _norm_h(hd @ adj)
 
 
+@pinned
 def _solve_h_qr_null(a: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """Smallest right-singular vector of ``A`` ``[..., M, 9]`` by Householder
     QR, then 3 rounds of inverse iteration ``x <- R^-1 R^-T x`` seeded with
@@ -217,6 +223,7 @@ def _det3x3(m: torch.Tensor) -> torch.Tensor:
     )
 
 
+@pinned
 def _sv_middle_3x3(h: torch.Tensor) -> torch.Tensor:
     """Middle singular value of a 3x3 from the closed-form (trigonometric)
     eigenvalues of ``H^T H``."""
@@ -234,6 +241,7 @@ def _sv_middle_3x3(h: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(e2, min=0.0))
 
 
+@pinned
 def decompose_homography(h: torch.Tensor) -> HomographyDecomposition:
     """Analytical Malis-Vargas decomposition of a calibrated homography: the
     solution set of ``cv::decomposeHomographyMat(H, I)``, up to four

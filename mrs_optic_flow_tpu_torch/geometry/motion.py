@@ -35,6 +35,7 @@ from mrs_optic_flow_tpu_torch.geometry.rotations import (
     quat_rotate,
 )
 from mrs_optic_flow_tpu_torch.geometry.undistort import undistort_points
+from mrs_optic_flow_tpu_torch.utils.precision import full_float32
 
 #: ratio-2 long-range mutual-agreement gate in px, ``LONGRANGE_INLIER_THRESHOLD``
 #: (``src/optic_flow.cpp:34``, used at ``:456`` with a strict ``<``)
@@ -137,7 +138,8 @@ def get_rt(
     # inverseSolution <=> n_z >= 0 (:657-660); t flips on the multi path only
     inverse_sol = _take(dec.normals, best)[2] >= 0.0
     inv_unit = torch.where(multi & inverse_sol, -1.0, 1.0).to(dtype)
-    tran = (_take(dec.rotations, best) @ (inv_unit * _take(dec.translations, best))) * height / dt
+    with full_float32():
+        tran = (_take(dec.rotations, best) @ (inv_unit * _take(dec.translations, best))) * height / dt
     rot = quat_from_axis_angle(_take(axes, best), _take(angles, best) / dt)
 
     ok &= torch.all(torch.isfinite(tran)) & torch.all(torch.isfinite(rot))

@@ -13,8 +13,8 @@ The correlation runs the raw surface through kernel B
 (:func:`~mrs_optic_flow_tpu_torch.ops.cuda_kernels.peak_refine_raw`) with
 ``use_pallas``, else through the plain peak refine.  With
 ``backend="dft"`` the forward and inverse DFTs at the log-polar size (480 at
-the defaults) are float32 ``torch.matmul``: full float32 on the card only
-while TF32 matmuls are off, PyTorch's default.
+the defaults) are float32 ``torch.matmul``, pinned to full float32 whatever
+the process's TF32 setting.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ Pallas SAD kernel in :mod:`mrs_optic_flow_tpu.ops.block_matching`:
   SAD map of each grid cell (``csrc/sad_search.cu``);
 - kernel D, :func:`phase_correlate_fullfused`, replaces
   ``pallas_kernels.py::phase_correlate_fullfused_pallas``: ``[P, N, N]``
-  patch pairs of any size in, one ``(shift, maxval)`` per pair out, in
-  staged tiled launches (``csrc/phase_correlate_fullfused.cu``);
+  patch pairs of any size in, one ``(shift, maxval)`` per pair out, a
+  mixed-radix FFT in one block a pair up to N = 170 and in four staged
+  launches beyond (``csrc/phase_correlate_fullfused.cu``);
 - kernel E, :func:`phase_correlate_fused`, replaces
   ``pallas_kernels.py::phase_correlate_fused_pallas``: the cross-power, full
   inverse DFT and peak of forward spectra that the wrapper computes
@@ -25,8 +26,9 @@ Pallas SAD kernel in :mod:`mrs_optic_flow_tpu.ops.block_matching`:
 Each source compiles with ``nvcc`` for ``sm_90a`` into a library of its own
 under ``build/torch_kernels/`` at first use, and is bound with ctypes.  The
 headers in ``csrc/`` hold device code that several sources share: the peak
-stage of kernel B (``peak_refine.cuh``, in B, D and E) and the tiled DFT
-stages (``dft_stages.cuh``, in D and E).
+stage of kernel B (``peak_refine.cuh``, in B, D and E), the mixed-radix FFT
+stages (``fft_stages.cuh``, in D) and the tiled DFT stages
+(``dft_stages.cuh``, in E).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain twin;
 CUDA tensors launch the kernel or raise.  Nothing falls back from a kernel to
@@ -97,10 +99,13 @@ _SIGNATURES = {
         "sad_search_tiled": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     },
     "phase_correlate_fullfused": {
+        "pcff_route": (_I, [_I]),
+        "pcff_plan": (_I, [_I, _P]),
+        "pcff_smem_bytes": (_LL, [_I]),
         "pcff_scratch_bytes": (_LL, [_I]),
-        # curr, prev, is_u8, p, n, chunk, radii, tab, scratch, shift, maxval,
-        # stream
-        "pcff_phase_correlate_fullfused": (_I, [_P, _P, _I, _I, _I, _I, _I, _I,
+        # curr, prev, is_u8, p, n, chunk, radii, peak k, band_rows, tab,
+        # scratch, shift, maxval, stream
+        "pcff_phase_correlate_fullfused": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                                 _P, _P, _P, _P, _P]),
     },
     "phase_correlate_fused": {
@@ -248,12 +253,14 @@ def frames_kernel_takes(patch: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     """``[n, 2]`` float32 table ``(cos, sin)(-2 pi m / n)``: row 1 of
-    :func:`_dft_matrices` (built in float64, cast to float32).  Kernels D
-    and E read entry ``(j, k)`` of the DFT matrix as ``m = j*k mod n``; the
+    :func:`_dft_matrices` (built in float64, cast to float32).  Kernel E
+    reads entry ``(j, k)`` of the DFT matrix as ``m = j*k mod n``; the
     reduced angle differs from the float64 matrix entry by at most 1.2e-13
     absolute for n <= 136 and 5.9e-13 for n <= 480 (the float32 tables by
     at most 5.1e-13).  Kernel A's FFT reads the twiddle ``W_n^(j1 k2)`` at
-    ``j1 * k2 < n`` and ``W_m^(j1 k1)`` at ``8 * (j1 k1 mod m)``."""
+    ``j1 * k2 < n`` and ``W_m^(j1 k1)`` at ``8 * (j1 k1 mod m)``; kernel D's
+    stage of radix r and span L reads ``W_L^(j k)`` at ``j k n / L`` and
+    ``W_r^(q k)`` at ``(q k mod r) n / r``."""
     c, s = _dft_matrices(n)
     tab = np.ascontiguousarray(np.stack([c[1], s[1]], axis=-1))
     return torch.from_numpy(tab).to(device)
@@ -368,7 +375,8 @@ def peak_refine_raw_ref(
     return shift, maxval, torch.argmax(surf.reshape(surf.shape[:-2] + (n * n,)), dim=-1)
 
 
-#: blocks kernel B aims at: two on each of an H100's 132 SMs
+#: blocks the split peak aims at (kernel B, and kernel D's staged design):
+#: two on each of an H100's 132 SMs
 PEAK_FILL_BLOCKS = 264
 
 
@@ -599,7 +607,71 @@ MAX_CHUNK = 16384
 
 
 def _chunk(p: int, pair_bytes: int) -> int:
+    if not pair_bytes:  # a design without scratch takes the batch at once
+        return max(1, p)
     return max(1, min(p, CHUNK_SCRATCH_BYTES // pair_bytes, MAX_CHUNK))
+
+
+#: kernel D's constants, as ``csrc/phase_correlate_fullfused.cu`` states
+#: them: the largest buffer side of its one-block design (8 W^2 B of shared
+#: memory plus the static reserve, W = n + n % 2), packed rows a block and
+#: columns a band in its staged design, and those passes' shared-memory target
+PCFF_MAX_SMALL = 170
+PCFF_LINES, PCFF_BAND, PCFF_SMEM_CAP = 4, 4, 96 * 1024
+#: threads a block of the one-block design, and the static shared memory it
+#: may use (its perm table, its warps' exact bins, the argmax's words)
+PCFF_SMALL_THREADS, PCFF_STATIC_RESERVE = 512, 1248
+#: the radices kernel D's FFT unrolls, in the order its plan takes them, and
+#: the largest prime it sums directly (a generic radix)
+FFT_RADICES = (8, 4, 2, 3, 5)
+FFT_MAX_GENERIC_RADIX = 1024
+
+
+def fft_plan(n: int) -> Tuple[int, ...]:
+    """Radices of kernel D's FFT of length ``n`` in stage order
+    (``fft::make_plan`` in ``csrc/fft_stages.cuh``): 8 while it divides,
+    then 4, 2, 3 and 5, then the remaining prime factors ascending."""
+    if n < 1:
+        raise ValueError(f"no FFT plan for n = {n}")
+    plan, rest = [], n
+    for r in FFT_RADICES:
+        while rest % r == 0 and rest > 1:
+            plan.append(r)
+            rest //= r
+    p = 7
+    while rest > 1:
+        while rest % p == 0:
+            plan.append(p)
+            rest //= p
+        p += 2
+    return tuple(plan)
+
+
+def pcff_small(n: int) -> bool:
+    """Kernel D's route: its one-block design for n <= PCFF_MAX_SMALL, its
+    staged passes beyond (``small_route`` in the source)."""
+    w = n + n % 2
+    return 8 * w * w + PCFF_STATIC_RESERVE <= H100_SMEM_OPTIN_BYTES
+
+
+def pcff_smem_bytes(n: int) -> int:
+    """Kernel D's largest dynamic shared memory for patch ``n``
+    (``pcff_smem_bytes`` in the source): the one-block design's W x W
+    complex buffer, or the staged design's row pass (PCFF_LINES lines and a
+    perm table) or column pass (PCFF_BAND columns of both patches)."""
+    if pcff_small(n):
+        w = n + n % 2
+        return 8 * w * w
+    lines = max(1, min(PCFF_LINES, PCFF_SMEM_CAP // (8 * n + 4)))
+    band = max(1, min(PCFF_BAND, PCFF_SMEM_CAP // (16 * n + 4)))
+    return max(lines * n * 8 + 4 * n, 16 * band * n)
+
+
+def pcff_scratch_bytes(n: int) -> int:
+    """Kernel D's scratch a pair: none for the one-block design; for the
+    staged one two half spectra ``[n, n/2 + 1]`` complex and the peak's
+    parts and counter."""
+    return 0 if pcff_small(n) else 16 * n * (n // 2 + 1) + 12 * n + 4
 
 
 def _check_pairs(what: str, dtypes, curr: torch.Tensor, prev: torch.Tensor,
@@ -618,13 +690,14 @@ def _check_pairs(what: str, dtypes, curr: torch.Tensor, prev: torch.Tensor,
 
 
 def _launch_staged(wrapper, prefix: str, inputs: tuple, curr: torch.Tensor,
-                   search_radius: int, centroid_radius: int):
+                   search_radius: int, centroid_radius: int, split_peak: bool = False):
     """Launch kernel D or E (library ``wrapper.__name__``, C functions
     ``<prefix>_scratch_bytes`` and ``<prefix>_<name>``) over the ``[P, N,
     N]`` batch shaped like ``curr``, its leading arguments ``inputs`` (data
     pointers and flags, whose tensors the caller holds), with a scratch of
-    ``_chunk`` pairs.  Adds one to ``wrapper.LAUNCHES``.  Returns ``(shift
-    [P, 2], maxval [P])``."""
+    ``_chunk`` pairs (none where the kernel needs none); ``split_peak``
+    passes kernel B's :func:`peak_split` of a chunk after the radii.  Adds
+    one to ``wrapper.LAUNCHES``.  Returns ``(shift [P, 2], maxval [P])``."""
     name = wrapper.__name__
     p, n = curr.shape[0], curr.shape[-1]
     shift = torch.empty((p, 2), dtype=torch.float32, device=curr.device)
@@ -635,9 +708,10 @@ def _launch_staged(wrapper, prefix: str, inputs: tuple, curr: torch.Tensor,
         chunk = _chunk(p, pair_bytes)
         scratch = torch.empty((chunk * pair_bytes,), dtype=torch.uint8, device=curr.device)
         tab = _twiddles(n, curr.device)
+        split = peak_split(chunk, n, search_radius) if split_peak else ()
         with torch.cuda.device(curr.device):
             err = getattr(lib, f"{prefix}_{name}")(
-                *inputs, p, n, chunk, search_radius, centroid_radius, tab.data_ptr(),
+                *inputs, p, n, chunk, search_radius, centroid_radius, *split, tab.data_ptr(),
                 scratch.data_ptr(), shift.data_ptr(), maxval.data_ptr(),
                 torch.cuda.current_stream(curr.device).cuda_stream,
             )
@@ -673,13 +747,16 @@ def phase_correlate_fullfused(
     search_radius: int = DEFAULT_SEARCH_RADIUS,
     centroid_radius: int = DEFAULT_CENTROID_RADIUS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel D: ``[P, N, N]`` patch pairs (uint8 or float32, any N >= 1)
-    -> ``(shift [P, 2], maxval [P])``; uint8 and float32 patches of the
-    same values give bit-identical results.
+    """Kernel D: ``[P, N, N]`` patch pairs (uint8 or float32, any N >= 1
+    whose prime factors are at most FFT_MAX_GENERIC_RADIX) -> ``(shift
+    [P, 2], maxval [P])``; uint8 and float32 patches of the same values
+    give bit-identical results.
 
     CPU tensors run :func:`phase_correlate_fullfused_ref`.  CUDA tensors
-    launch ``csrc/phase_correlate_fullfused.cu`` on the current stream,
-    ``CHUNK_SCRATCH_BYTES`` of pairs at a time; each launch adds one to
+    launch ``csrc/phase_correlate_fullfused.cu`` on the current stream: one
+    block a pair for N <= PCFF_MAX_SMALL, else four staged launches,
+    ``CHUNK_SCRATCH_BYTES`` of pairs at a time, the last kernel B's split
+    peak over the blocks :func:`peak_split` names; each call adds one to
     ``phase_correlate_fullfused.LAUNCHES``.
     """
     if curr.device.type == "cpu" and prev.device.type == "cpu":
@@ -688,9 +765,15 @@ def phase_correlate_fullfused(
         )
     _check_pairs("phase_correlate_fullfused", (torch.uint8, torch.float32), curr, prev,
                  search_radius, centroid_radius)
+    n = curr.shape[-1]
+    if n and max(fft_plan(n), default=1) > FFT_MAX_GENERIC_RADIX:
+        raise ValueError(f"kernel D takes patches whose prime factors are at most "
+                         f"{FFT_MAX_GENERIC_RADIX}, not {n}")
+    if n:
+        _smem_fits(pcff_smem_bytes(n), curr.device, f"kernel D at patch {n}")
     inputs = (curr.data_ptr(), prev.data_ptr(), int(curr.dtype == torch.uint8))
     return _launch_staged(phase_correlate_fullfused, "pcff", inputs, curr, search_radius,
-                          centroid_radius)
+                          centroid_radius, split_peak=True)
 
 
 phase_correlate_fullfused.LAUNCHES = 0

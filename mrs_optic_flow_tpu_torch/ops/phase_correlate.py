@@ -31,6 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from mrs_optic_flow_tpu_torch.utils.precision import pinned
+
 # float32 machine epsilon — FLT_EPSILON in the OpenCL kernel
 # (cl/FftMethod.cl:979, :1352).
 FLT_EPSILON = float(np.finfo(np.float32).eps)
@@ -60,6 +62,7 @@ def _dft_tensors(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tens
     return torch.from_numpy(c).to(device), torch.from_numpy(s).to(device)
 
 
+@pinned
 def _dft2_real(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """2-D DFT of a real ``[..., n, n]`` input by matrix products: (re, im)."""
     c, s = _dft_tensors(x.shape[-1], x.device)
@@ -70,6 +73,7 @@ def _dft2_real(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return fr, fi
 
 
+@pinned
 def _idft2_real_output(rr: torch.Tensor, ri: torch.Tensor) -> torch.Tensor:
     """Real part of the inverse 2-D DFT (``1/N^2`` scaled); conj(W) = C - iS."""
     n = rr.shape[-1]
@@ -89,9 +93,9 @@ def correlation_surface_raw(
     DFT output as it is, zero shift at ``(0, 0)``, neither shifted nor
     masked.  Kernel B (``cuda_kernels.peak_refine_raw``) reads it directly.
 
-    ``backend="dft"`` runs the transforms as float32 ``torch.matmul``: on a
-    CUDA device that is full float32 only while TF32 matmuls are off
-    (PyTorch's default, which ``chip_smoke.py`` asserts)."""
+    ``backend="dft"`` runs the transforms as float32 ``torch.matmul``,
+    pinned to full float32 whatever the process's TF32 setting
+    (:mod:`~mrs_optic_flow_tpu_torch.utils.precision`)."""
     n = curr.shape[-1]
     if curr.shape[-2] != n:
         raise ValueError(f"patches must be square, got {curr.shape[-2]}x{n}")

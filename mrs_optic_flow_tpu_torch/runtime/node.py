@@ -572,13 +572,14 @@ class OpticFlowNode:
         # ang_diff_rejected | , diff_b (3))(, scale, rot)(, raw shifts)]
         summary = summary_dev.cpu().numpy()
         k = 4 if simple else 7 if long_range else 9
-        if self.scale_rotation_estimator is not None:
+        sr = self.scale_rotation_estimator is not None
+        # the raw shifts first, then scale/rotation, as the JAX node publishes
+        if c.raw_output:
+            self.publish("points_raw_out", summary[k + 2 * sr:].reshape(-1, 2))
+        if sr:
             # published regardless of the flow gate: the estimators are
             # independent (src/optic_flow.cpp:1629-1650)
             self._publish_scale_rotation(msg.stamp, float(summary[k]), float(summary[k + 1]), height)
-            k += 2
-        if c.raw_output:
-            self.publish("points_raw_out", summary[k:].reshape(-1, 2))
         if not bool(summary[0] > 0.5):
             if not (simple or long_range) and bool(summary[8] > 0.5):
                 # src/optic_flow.cpp:682-684 (throttled, 1 Hz)

@@ -8,8 +8,12 @@ patch pairs made from a seed, at every size kernel D has to take (odd
 included, up to the 480 px frame): shifts within 1e-3 px and maxval within
 1e-4 relative, as ``tests/test_torch_peak_refine.py``.  Then NaN input, a
 shift beyond the search radius, the wrappers' CPU dispatch, the port's
-``conformance.check`` and kernel C's tiling rule.
+``conformance.check``, kernel C's tiling rule, and the ctypes bindings of
+every kernel against the C functions its source declares.
 """
+
+import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -191,3 +195,30 @@ def test_sad_tiling_rule(s, r, parts):
     assert geo.parts == parts == -(-s // cuda_kernels.SAD_ROWS) and geo.xb == s
     assert 2 * (geo.smem + cuda_kernels.STATIC_SMEM_BYTES) <= 233_472
     assert geo.smem + cuda_kernels.STATIC_SMEM_BYTES <= cuda_kernels.H100_SMEM_OPTIN_BYTES
+
+
+#: every C function the wrappers bind: (kernel, function)
+BINDINGS = [(name, fn) for name, fns in cuda_kernels._SIGNATURES.items() for fn in fns]
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+def _c_type(decl: str):
+    decl = " ".join(decl.split())
+    return ctypes.c_void_p if "*" in decl else _C_TYPES[decl.rsplit(" ", 1)[0] if " " in decl else decl]
+
+
+@pytest.mark.parametrize("name,fn", BINDINGS)
+def test_bindings_match_the_sources(name, fn):
+    """The ctypes signature of each bound C function is the one its source
+    declares (pointers as c_void_p), so that kernel D's launch, for one,
+    takes kernel B's peak split (k, band_rows) right after the radii."""
+    source = (cuda_kernels.CSRC / cuda_kernels.SOURCES[name]).read_text()
+    m = re.search(rf"^(int|long long) {fn}\(([^)]*)\)", source, re.M)
+    assert m, f"{fn} not declared in {cuda_kernels.SOURCES[name]}"
+    params = [p for p in m.group(2).split(",") if p.strip()]
+    restype, argtypes = cuda_kernels._SIGNATURES[name][fn]
+    assert _C_TYPES[m.group(1)] is restype
+    assert [_c_type(p) for p in params] == argtypes, params
+    if fn == "pcff_phase_correlate_fullfused":
+        names = [p.split()[-1] for p in params]
+        assert names[6:10] == ["search_radius", "centroid_radius", "k", "band_rows"]

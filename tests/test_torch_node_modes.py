@@ -7,7 +7,18 @@ CPU, on the same event stream: a nadir camera over the synthetic scene
   ``raw_output``, checkpoints read across packages in both directions, the
   tilt gate, and warmup;
 - methods 3 and 5 with each ``filter_method`` (frame 96, blocks 24, radius
-  8, step 8), one of them with scale/rotation.
+  8, step 8), one of them with scale/rotation;
+- the full ordered publish log (every topic, in order) with ``raw_output``
+  and ``scale_rotation`` in short range, long range and method 5: the raw
+  shifts go out before the scale/rotation message, as in the JAX node
+  (repair F7);
+- ``scale_factor`` 1.5 and 0.8 on raw 752x480 frames, the port's config
+  copied from the JAX loader's (frame and patch divided by the factor:
+  320/80 through kernel A's twin, 600/150 through kernel D's): raw shifts
+  within 1e-3 px; twists within SCALE_FACTOR_TWIST_TOL, since the two
+  packages draw different RANSAC hypotheses and the 752x480 stream at
+  fx 100 leaves windows outside the consensus (at factor 1 the same stream
+  agrees within 6e-4 m/s, at 1.5 within 3.3e-3).
 
 Tolerances: twists 1e-3 m/s and raw shifts 1e-3 px as in
 ``tests/test_torch_node.py``.  On the yawing method-4 stream some windows
@@ -265,3 +276,63 @@ def test_newly_supported_configs_construct(field, value):
     node = OpticFlowNode(NodeConfig(**{field: value}), device="cpu")
     assert (node.scale_rotation_estimator is not None) == (field == "scale_rotation")
     assert to_numpy(node.flow_state.prev).shape == (480, 480)
+
+
+#: (port config, JAX overrides) of the publish-order cases, all with
+#: raw_output (the default) and scale_rotation
+ORDER_CASES = {
+    "short range": (SR_CONFIG, SR_OVERRIDES),
+    "long range": (
+        NodeConfig(scale_rotation=True, scale_rot_lp_resolution=64, scale_rot_magnitude=20.0,
+                   frame_size=128, sample_point_size=32, long_range_mode="always_on"),
+        {**SR_OVERRIDES, "mrs_optic_flow": {"frame_size": 128, "sample_point_size": 32,
+                                            "long_range_mode": "always_on"}}),
+    "method 5": (
+        NodeConfig(method=5, scale_rotation=True, scale_rot_lp_resolution=32, scale_rot_magnitude=12.0,
+                   **BM_GEOMETRY),
+        {"mrs_optic_flow": dict(BM_GEOMETRY, method=5), "tpu": {"use_pallas": False},
+         "scale_rotation": True, "scale_rot_lp_resolution": 32, "scale_rot_magnitude": 12.0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES))
+def test_publish_log_order_matches_jax(case):
+    config, overrides = ORDER_CASES[case]
+    assert config.raw_output and config.scale_rotation
+    events = _events(160, 144, yaw_step=0.02, descent=0.01)
+    logs = []
+    for make in (lambda pub: _port_node(config, pub), lambda pub: _jax_node(overrides, pub)):
+        published = []
+        _drive(make(published), events, published)
+        logs.append([topic for topic, _ in published])
+    ours, theirs = logs
+    assert ours == theirs
+    # every processed frame: the raw shifts, then scale/rotation
+    raw = [i for i, t in enumerate(ours) if t == "points_raw_out"]
+    sr = [i for i, t in enumerate(ours) if t == "scale_rotation_out"]
+    assert len(raw) == len(sr) == N_FRAMES - 1 and all(r < s for r, s in zip(raw, sr))
+
+
+SCALE_FACTOR_TWIST_TOL = 1e-2  # m/s
+
+
+@pytest.mark.parametrize("factor,frame,patch", [(1.5, 320, 80), (0.8, 600, 150)])
+def test_scale_factor_node_matches_jax(factor, frame, patch):
+    overrides = {"mrs_optic_flow": {"scale_factor": factor}, "tpu": {"use_pallas": False}}
+    config = NodeConfig.from_optic_flow_config(load_config(overrides=overrides))
+    assert (config.scale_factor, config.frame_size, config.sample_point_size) == (factor, frame, patch)
+    events = _events(752, 480, yaw_step=0.0, descent=0.0)
+    published = []
+    ours = _drive(_port_node(config, published), events, published)
+    published = []
+    theirs = _drive(_jax_node(overrides, published), events, published)
+    assert len(ours["points_raw_out"]) == N_FRAMES - 1
+    for a, b in zip(ours["points_raw_out"], theirs["points_raw_out"], strict=True):
+        assert a.shape == (16, 2)
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-3, rtol=0)
+    twists = ours["velocity_out"]
+    assert len(twists) == N_FRAMES - 1
+    assert [tw.stamp for tw in twists] == [tw.stamp for tw in theirs["velocity_out"]]
+    for a, b in zip(twists, theirs["velocity_out"]):
+        np.testing.assert_allclose(a.linear, b.linear, atol=SCALE_FACTOR_TWIST_TOL, rtol=0)
+        assert a.frame_id == b.frame_id

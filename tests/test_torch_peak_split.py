@@ -36,6 +36,18 @@ def test_peak_split(p, n, r, k, band):
     assert k * band >= rows > (k - 1) * band
 
 
+@pytest.mark.parametrize("n,r", [(480, 240), (480, 55), (171, 55), (240, 55), (240, 240), (97, 3)])
+def test_peak_split_is_a_valid_split(n, r):
+    """What ``peak::valid_split`` accepts, which kernels B and D check before
+    they launch, for every batch (or kernel D chunk) up to 300 pairs: the k
+    bands cover the window's rows and none is empty, so k <= n as kernel
+    D's scratch assumes."""
+    rows = ck.peak_window_rows(n, r)
+    for p in range(1, 301):
+        k, band = ck.peak_split(p, n, r)
+        assert k * band >= rows > (k - 1) * band and 1 <= k <= n, (p, k, band)
+
+
 def test_peak_split_fills_the_card():
     """At least one block on each of the 132 SMs below PEAK_FILL_BLOCKS
     surfaces (the rows round to whole bands), one a surface from there."""
