@@ -5,16 +5,17 @@
     python3 chip_smoke.py --baseline NAME=PATH [--baseline NAME=PATH ...]
 
 ``--baseline`` builds kernel NAME (``phase_correlate_frames``,
-``peak_refine_raw``, ``sad_search`` or ``phase_correlate_fullfused``) from
-another source, PATH, and times it in turns with the kernel from ``csrc/``
-in the phase that times that kernel (4, 6, 7, 10 and 13); PATH may have the
-current C interface or, for B and C, the one before their redesign.  The
-card gets no ``.git/``: write an earlier source into ``build/`` first, e.g.
-``git show a7250c7:mrs_optic_flow_tpu_torch/csrc/sad_search.cu >
-build/baseline/sad_search.cu`` (kernel B's ``peak_refine_raw.cu`` with its
-``peak_refine.cuh`` beside it; kernel D's design before its FFT,
-``32e2fe5:.../phase_correlate_fullfused.cu``, with that commit's
-``dft_stages.cuh`` and ``peak_refine.cuh``).
+``peak_refine_raw``, ``sad_search``, ``phase_correlate_fullfused`` or
+``phase_correlate_fused``) from another source, PATH, and times it in turns
+with the kernel from ``csrc/`` in the phase that times that kernel (4, 6, 7,
+10, 11 and 13); PATH may have the current C interface or, for B to E, the
+one before their redesign.  The card gets no ``.git/``: write an earlier
+source into ``build/`` first, e.g. ``git show
+a7250c7:mrs_optic_flow_tpu_torch/csrc/sad_search.cu >
+build/baseline/sad_search.cu``, with the headers it includes beside it
+(kernel B's ``peak_refine_raw.cu``; kernel D's design before its FFT,
+``32e2fe5:.../phase_correlate_fullfused.cu``; kernel E's before its FFT,
+``9508452:.../phase_correlate_fused.cu``).
 
 Phases, each printing a line when it finishes:
 
@@ -25,9 +26,10 @@ Phases, each printing a line when it finishes:
    constant (kernel A's largest patch), kernel A's blocks an SM (two at
    n = 120), kernel C's launch geometry (``sad_geometry``: shared memory,
    scratch, counters) against its library and the device's limits,
-   kernels B's and C's fill targets against the SM count, and kernel D's
-   FFT plan, route, shared memory and scratch for n = 1 to 480 against
-   ``cuda_kernels`` (``fft_plan``, ``pcff_small``, ``pcff_smem_bytes``);
+   kernels B's and C's fill targets against the SM count, and kernels D's
+   and E's FFT plan, route, shared memory and scratch for n = 1 to 480
+   against ``cuda_kernels`` (``fft_plan``, ``pcff_small``,
+   ``pcff_smem_bytes``, ``pcfu_smem_bytes``, ``pcfu_scratch_bytes``);
 3. kernel A against its plain twin and the NumPy oracle (``tests/oracle.py``)
    on the shared accuracy pairs (480 px frames, 120 px patches, uint8), plus
    the edge cases: zero frames, identical frames, a NaN pixel, float32
@@ -37,7 +39,8 @@ Phases, each printing a line when it finishes:
    radius and a weak one within it;
 4. kernel A at B = 1 and at the bench point (4,096 uint8 480² pairs, 4x4
    patches of 120 px) beside the stock ``torch.fft`` route on the same
-   inputs, its bound and the share of it, the twin, and the throughput of
+   inputs, its bound and the share of it (of its own device time too at
+   the bench point), the twin, and the throughput of
    ``FftMethod.step_batch`` at the bench point;
 5. the node: ``OpticFlowNode(NodeConfig(), device="cuda")`` on 20 BGR
    752x480 frames of a texture moving at a known velocity; every published
@@ -54,7 +57,8 @@ Phases, each printing a line when it finishes:
    and identical repeated runs at (S, R) = (120, 21), (120, 0) and (8, 3),
    G = 1, 9 and 16; 1e-6 relative on float inputs; timed at the default
    geometry (9 cells, S = 120, R = 21) and at G = 1 beside the twin, the
-   bound and ``torch.cdist(p=1)`` over the regions' unfold;
+   bound and ``torch.cdist(p=1)`` over the regions' unfold (also in phase
+   13);
 8. the node with ``scale_rotation: true`` at full width (frame 480,
    log-polar 480, Lanczos-4) on 20 frames rotated and zoomed about the
    image centre by known steps: every decode after the first within 1 deg
@@ -75,10 +79,20 @@ Phases, each printing a line when it finishes:
     ([64, 60, 60] uint8 the node's) beside the twin, the ``torch.fft`` route
     (through its calls and by its own device time) and the bound, and in
     turns with the design before when ``--baseline`` names it;
-11. kernel E against its twin on ``[16, 120, 120]``, a NaN and a masked
-    case, then ``conformance.check`` of the five backends on the card (all
-    10 pairs within 0.05 px); timed beside the twin and the ``torch.fft``
-    route;
+11. kernel E against its twin and the oracle at n = 120, 45, 97, 170, 171,
+    240 and 480 (its one-block design up to 170, its three staged launches
+    from 171; 16 pairs of 480 px in two chunks, P = 1 within SHIFT_TOL of
+    the same pair in the batch), uint8 and float32 bit-identical (repair
+    F8); the staged design at odd counts of odd patches (171 px at P = 1,
+    3 and 100 in chunks of 95 and 5, 175 px at P = 3); zero, NaN
+    and one-sided zero pairs at n = 120, 171 and 480, a shift beyond the
+    search radius at n = 480; then ``conformance.check`` of the five
+    backends on ``[16, 120, 120]`` (all 10 pairs within 0.05 px); timed at
+    each shape of ``E_TIMED`` through the wrapper and by its own device
+    time, split by kernel name into E's own launches and the forward
+    products, with its launches a call, beside the twin, the ``torch.fft``
+    route (through its calls and by its own device time) and the bound, and
+    in turns with the design before when ``--baseline`` names it;
 12. long-range nodes: ``long_range_mode: height_based`` with
     ``takeoff_height`` 1.0 m on 20 frames whose heights cross 1.0 m both
     ways, the render's pixel shift following each frame's height; (a) at
@@ -120,6 +134,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -227,12 +242,13 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def own_ms(fn, reps: int) -> float:
-    """Device time of one ``fn()`` call: for each kernel that
-    ``torch.profiler`` records over ``reps`` calls (after a warm-up call),
-    the median of its durations times its launches a call, summed.  It
-    leaves out the host's time to issue the launches and the gaps between
-    them; the median keeps a launch that waited on the card's clock out."""
+def own_by_kernel(fn, reps: int) -> dict:
+    """Device time of one ``fn()`` call by kernel name, ``{name: (launches a
+    call, ms a call)}``: for each kernel that ``torch.profiler`` records over
+    ``reps`` calls (after a warm-up call), its launches a call and the median
+    of its durations times them.  It leaves out the host's time to issue the
+    launches and the gaps between them; the median keeps a launch that
+    waited on the card's clock out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -250,8 +266,16 @@ def own_ms(fn, reps: int) -> float:
         if durations:
             break
     check(durations, "the profiler recorded no kernel")
-    total_us = sum(float(np.median(d)) * max(1, round(len(d) / reps)) for d in durations.values())
-    return total_us / 1e3
+    out = {}
+    for name, d in durations.items():
+        launches = max(1, round(len(d) / reps))
+        out[name] = (launches, float(np.median(d)) * launches / 1e3)
+    return out
+
+
+def own_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()`` call: ``own_by_kernel``'s times, summed."""
+    return sum(ms for _, ms in own_by_kernel(fn, reps).values())
 
 
 #: ``--baseline NAME=PATH``: kernel name -> the library built from PATH
@@ -263,7 +287,9 @@ def build_baselines(specs: list) -> None:
     once) and bind its C interface: the current one, or the one the kernel
     had before its redesign (kernel B's ``prr_peak_refine_raw``, kernel C's
     ``sad_sad_search``, kernel D's ``pcff_phase_correlate_fullfused``
-    without the peak split, a library without ``pcff_route``)."""
+    without the peak split, a library without ``pcff_route``; kernel E's
+    ``pcfu_phase_correlate_fused`` of four spectra, a library without
+    ``pcfu_stack``)."""
     import ctypes
 
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
@@ -280,14 +306,20 @@ def build_baselines(specs: list) -> None:
         "prr_peak_refine_raw": (_I, [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
         "sad_sad_search": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
     }
-    before_pcff = {"pcff_phase_correlate_fullfused": (_I, [_P, _P] + [_I] * 6 + [_P] * 5)}
+    before_new = {  # kernel -> (the function the redesign added, the old signatures)
+        "phase_correlate_fullfused": ("pcff_route", {
+            "pcff_phase_correlate_fullfused": (_I, [_P, _P] + [_I] * 6 + [_P] * 5)}),
+        "phase_correlate_fused": ("pcfu_stack", {
+            "pcfu_phase_correlate_fused": (_I, [_P] * 4 + [_I] * 5 + [_P] * 5)}),
+    }
     for name, (out, proc) in jobs.items():
         log = proc.communicate()[0]
         check(proc.returncode == 0, f"baseline {name}: nvcc failed\n{log}")
         for line in ptxas_lines(log):
             say(f"  ptxas baseline {name}: {line}")
         lib = ctypes.CDLL(str(out))
-        old = before_pcff if name == "phase_correlate_fullfused" and not hasattr(lib, "pcff_route") else {}
+        added, old = before_new.get(name, ("", {}))
+        old = old if added and not hasattr(lib, added) else {}
         for fn, (restype, argtypes) in {**ck._SIGNATURES[name], **before, **old}.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
@@ -457,6 +489,9 @@ def measure_throughput(dev) -> tuple:
         say(f"  kernel A B={b}: {ms:.4f} ms ({b * 16 / ms * 1e3:.0f} windows/s); torch.fft route "
             f"{lib_ms:.4f} ms (surfaces alone {chain_ms:.4f} ms, peak {lib_gb:.1f} GB allocated); "
             f"bound {bound_ms:.5f} ms ({by}), kernel at {bound_ms / ms:.2%} of it")
+        if b == BENCH_BATCH:
+            own = own_ms(lambda: kernel(c, p, patch=120), reps_k)
+            say(f"  kernel A B={b}: own {own:.4f} ms, at {bound_ms / own:.2%} of the bound")
         out[b] = (ms, lib_ms)
     ms_twin_one = time_cuda(lambda: twin(curr[:1], prev[:1], patch=120), 50)
     c1, p1 = curr[:1].contiguous(), prev[:1].contiguous()
@@ -838,7 +873,7 @@ def check_sad_kernel(dev) -> dict:
     say(f"  float inputs within {rel:.3g} relative of the twin")
     out = time_sad(dev, curr, prev, s, r, "[9, 43, 43] S=120", library=True)
     c1, p1 = curr[:1].contiguous(), prev[:1].contiguous()
-    out["g1"] = time_sad(dev, c1, p1, s, r, "[1, 43, 43] S=120")
+    out["g1"] = time_sad(dev, c1, p1, s, r, "[1, 43, 43] S=120", library=True)
     say("[7 kernel C] matches its twin; G=1 and repeated runs identical")
     out["err"] = 0.0
     return out
@@ -1252,34 +1287,174 @@ def check_fullfused_kernel(dev) -> dict:
     return out
 
 
-def check_fused_kernel(dev) -> tuple:
-    """Phase 11.  Returns (E's launches in the conformance check, max shift
-    difference from the twin, kernel ms, own ms, twin ms, torch.fft route
-    ms and its own ms) on ``[16, 120, 120]``."""
+#: phase 11's timed shapes of kernel E, float32 pairs: label -> (n, pairs);
+#: the first, the conformance diff's, is the kernels line's row
+E_TIMED = {"16x120": (120, 16), "4x240": (240, 4), "1x480": (480, 1)}
+
+
+def old_fused_runner(lib, curr, prev, search_radius: int = 55, centroid_radius: int = 3):
+    """A closure running kernel E's design before this one from ``lib`` (C
+    interface ``pcfu_phase_correlate_fused(f1r, f1i, f2r, f2i, ...)``) as its
+    wrapper did: ``_dft2_real`` of both batches, then the launch; outputs
+    and scratch allocated once."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import _dft2_real
+
+    p, n, dev = curr.shape[0], curr.shape[-1], curr.device
+    pair_bytes = lib.pcfu_scratch_bytes(n)
+    chunk = ck._chunk(p, pair_bytes)
+    scratch = torch.empty((chunk * pair_bytes,), dtype=torch.uint8, device=dev)
+    tab = ck._twiddles(n, dev)
+    shift = torch.empty((p, 2), dtype=torch.float32, device=dev)
+    maxval = torch.empty((p,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        spectra = (*_dft2_real(curr), *_dft2_real(prev))
+        check(lib.pcfu_phase_correlate_fused(
+            *(f.data_ptr() for f in spectra), p, n, chunk, search_radius, centroid_radius,
+            tab.data_ptr(), scratch.data_ptr(), shift.data_ptr(), maxval.data_ptr(), stream) == 0,
+            "the old kernel E's launch failed")
+        return shift
+    return run
+
+
+#: the ``__global__`` functions of kernel E's own launches after the forward
+#: products (``csrc/phase_correlate_fused.cu``, kernel B's split peak)
+E_OWN = re.compile(r"\b(small_kernel|rows_inverse|cols_inverse|peak_split_kernel)\b")
+
+
+def time_fused(c, p, label: str) -> dict:
+    """Kernel E on one float32 batch: through the wrapper and by its own
+    device time, split by kernel name into E's own launches (``E_OWN``) and
+    the forward products (every other kernel of the call: the stack, the
+    GEMMs and whatever the library adds to them), with its launches a call; the
+    twin; the ``torch.fft`` chain through its calls and by its own device
+    time; the bound; and the design before this one in turns when
+    ``--baseline phase_correlate_fused=PATH`` names it."""
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
+        phase_correlate_fused as kernel,
+        phase_correlate_fused_ref as twin,
+    )
+    from mrs_optic_flow_tpu_torch.ops.phase_correlate import phase_correlate_field
+
+    n, pairs = c.shape[-1], c.shape[0]
+
+    def library():
+        return phase_correlate_field(c, p, backend="fft")
+
+    by_name = own_by_kernel(lambda: kernel(c, p), 100)
+    forward = {k: v for k, v in by_name.items() if not E_OWN.search(k)}
+    out = {
+        "ms": time_cuda(lambda: kernel(c, p), 100),
+        "own_ms": sum(ms for _, ms in by_name.values()),
+        "forward_own_ms": sum(ms for _, ms in forward.values()),
+        "launches_a_call": sum(k for k, _ in by_name.values()),
+        "forward_launches": sum(k for k, _ in forward.values()),
+        "plain_ms": time_cuda(lambda: twin(c, p), 20),
+        "library_ms": time_cuda(library, 50),
+        "library_own_ms": own_ms(library, 50),
+    }
+    bound_ms, by = bound("phase_correlate_fused", p=pairs, n=n, itemsize=c.element_size())
+    out.update(bound_ms=bound_ms, bound_by=by)
+    route = "one block a pair" if ck.pcff_small(n) else "staged"
+    say(f"  E [{label}] ({route}): {out['ms']:.4f} ms through the wrapper, own {out['own_ms']:.4f} ms "
+        f"in {out['launches_a_call']} launches a call: forward {out['forward_own_ms']:.4f} ms in "
+        f"{out['forward_launches']}, kernel E {out['own_ms'] - out['forward_own_ms']:.4f} ms in "
+        f"{out['launches_a_call'] - out['forward_launches']}; twin {out['plain_ms']:.4f} ms; "
+        f"torch.fft route {out['library_ms']:.4f} ms (own {out['library_own_ms']:.4f} ms); bound "
+        f"{bound_ms:.6f} ms ({by})")
+    for name, (k, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        say(f"    x{k} {ms:.4f} ms  {name[:110]}")
+    if "phase_correlate_fused" in BASELINES:
+        runs = {"baseline": old_fused_runner(BASELINES["phase_correlate_fused"], c, p),
+                "kernel": lambda: kernel(c, p)[0]}
+        err = float((runs["baseline"]() - runs["kernel"]()).abs().max())
+        check(err <= SHIFT_TOL, f"E [{label}]: the baseline differs by {err} px")
+        turns = in_turns(f"kernel E [{label}], with the forward products (max|shift difference| "
+                         f"{err:.2e} px)", runs, 100)
+        out["baseline_own_ms"] = turns["baseline"]
+        out["turns_own_ms"] = turns["kernel"]
+    return out
+
+
+def check_fused_kernel(dev) -> dict:
+    """Phase 11.  Returns {"launches": E's launches in the conformance
+    check, "err": max shift difference from the twin, label:
+    ``time_fused``'s numbers for each of E_TIMED}."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import conformance
-    from mrs_optic_flow_tpu_torch.ops.phase_correlate import phase_correlate_field
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
     from mrs_optic_flow_tpu_torch.ops.cuda_kernels import (
         phase_correlate_fused as kernel,
         phase_correlate_fused_ref as twin,
     )
 
-    c8, p8, oracle = patch_pairs(120, 1, seed=11)
-    c, p = torch.from_numpy(c8).to(dev).float(), torch.from_numpy(p8).to(dev).float()
-    errs = [compare_pc(kernel, twin, c, p, "E [16, 120, 120]", oracle)]
-    cn = c[:3].clone()
-    cn[1, 40, 60] = float("nan")
-    cn[2] = 0.0
-    ns = kernel(cn, p[:3].contiguous())[0].cpu().numpy()
-    check(np.isnan(ns[1]).all() and np.all(ns[2] == -60.0), f"E NaN/zero give {ns[1]}, {ns[2]}")
-    errs.append(compare_pc(kernel, twin, cn, p[:3].contiguous(), "E NaN/tie"))
-    mc, mp = (torch.from_numpy(x).to(dev) for x in masked_pair(480, seed=7))
-    errs.append(compare_pc(kernel, twin, mc, mp, "E n=480 masked"))
+    def on(x):
+        return torch.from_numpy(x).to(dev)
+
+    errs, batches = [], {}
+    # both designs against twin and oracle; repair F8: uint8 = float32 bit for bit
+    for n, pairs in ((120, 1), (45, 1), (97, 1), (170, 1), (171, 1), (240, 1), (480, 16)):
+        c8, p8, oracle = patch_pairs(n, pairs, seed=11 if n == 120 else 30 + n)
+        c, p = on(c8).float(), on(p8).float()
+        batches[n] = (c, p)
+        route = "one block a pair" if ck.pcff_small(n) else "staged"
+        errs.append(compare_pc(kernel, twin, c, p, f"E n={n} P={c.shape[0]} ({route})", oracle))
+        check(all(torch.equal(a, b) for a, b in zip(kernel(on(c8), on(p8)), kernel(c, p))),
+              f"E n={n}: uint8 and float32 differ")
+    say("  every n: uint8 and float32 bit-identical (F8)")
+    # the staged design's scratch with an odd count of odd patches: every
+    # array of its layout stays aligned to its type (100 pairs of 171 px go
+    # in chunks of 95 and 5)
+    for n, keep in ((171, 1), (171, 3), (175, 3), (171, 100)):
+        c8, p8, oracle = patch_pairs(n, 25 if keep == 100 else 1, seed=50 + n + keep)
+        c, p = on(c8[:keep]).float(), on(p8[:keep]).float()
+        errs.append(compare_pc(kernel, twin, c, p, f"E n={n} P={keep} in chunks of "
+                               f"{ck._chunk(keep, ck.pcfu_scratch_bytes(n))} (staged)", oracle[:keep]))
+    c, p = batches[480]
+    chunk = ck._chunk(c.shape[0], ck.pcfu_scratch_bytes(480))
+    check(chunk < c.shape[0], f"E n=480: one chunk of {chunk} pairs")
+    # the library's forward GEMMs may sum in another order for another
+    # batch, so a pair alone agrees with itself in the batch within SHIFT_TOL
+    whole = kernel(c, p)[0]
+    one = kernel(c[5:6].contiguous(), p[5:6].contiguous())[0]
+    gap = float((one - whole[5:6]).abs().max())
+    check(gap <= SHIFT_TOL, f"E n=480: P=1 differs by {gap} px from the same pair in {c.shape[0]} "
+          f"pairs in chunks of {chunk}")
+    say(f"  n=480: {c.shape[0]} pairs in chunks of {chunk}; P=1 within {gap:.3g} px of the same pair "
+        f"in the batch")
+    for n in (120, 171, 480):
+        zero = torch.zeros((2, n, n), dtype=torch.float32, device=dev)
+        zs, zm = (x.cpu().numpy() for x in kernel(zero, zero))
+        check(np.all(zs == -(n // 2)) and np.all(zm == 0.0), f"E n={n}: zero patches give {zs[0]}, {zm[0]}")
+        c, p = batches[n]
+        c = c[:4].clone()
+        p = p[:4].clone()
+        c[1, n // 3, n // 2] = float("nan")  # a NaN pixel in pair 1
+        c[2] = 0.0  # pair 2: curr zero, a surface of ties
+        p[3] = 0.0  # pair 3: prev zero
+        ns, nm = (x.cpu().numpy() for x in kernel(c, p))
+        check(np.isnan(ns[1]).all() and np.isnan(nm[1]), f"E n={n}: NaN pair gives {ns[1]}, {nm[1]}")
+        check(np.isfinite(ns[0]).all() and np.all(ns[2:] == -(n // 2)) and np.all(nm[2:] == 0.0),
+              f"E n={n}: {ns[0]}, one-sided zero pairs give {ns[2:]}, {nm[2:]}")
+        errs.append(compare_pc(kernel, twin, c, p, f"E n={n} NaN/one-sided zero"))
+    say("  zero, NaN and one-sided zero pairs at n = 120, 171 and 480 as the twin: exactly -(n//2) "
+        "with maxval 0")
+    mc, mp = (on(x) for x in masked_pair(480, seed=7))
+    errs.append(compare_pc(kernel, twin, mc, mp, "E n=480 masked, radius 55"))
+    errs.append(compare_pc(kernel, twin, mc, mp, "E n=480 unmasked, radius 240", search_radius=240))
     masked = kernel(mc, mp)[0].cpu().numpy()[0]
+    unmasked = kernel(mc, mp, search_radius=240)[0].cpu().numpy()[0]
     check(np.abs(masked - [10.0, 3.0]).max() < 0.5, f"E masked peak {masked}")
+    check(np.abs(unmasked - [70.0, 0.0]).max() < 0.5, f"E unmasked peak {unmasked}")
     err = max(errs)
 
+    c, p = batches[120]
     kernel.LAUNCHES = 0
     report = conformance.check(c, p, tolerance_px=CONFORMANCE_TOL)
     launches = kernel.LAUNCHES
@@ -1288,16 +1463,15 @@ def check_fused_kernel(dev) -> tuple:
         f"({max(report, key=report.get)}); kernel E launches {launches}")
     check(len(report) == 10 and worst <= CONFORMANCE_TOL, f"conformance {report}")
 
-    ms = time_cuda(lambda: kernel(c, p), 200)
-    own = own_ms(lambda: kernel(c, p), 200)
-    plain_ms = time_cuda(lambda: twin(c, p), 50)
-    lib_ms = time_cuda(lambda: phase_correlate_field(c, p, backend="fft"), 50)
-    lib_own = own_ms(lambda: phase_correlate_field(c, p, backend="fft"), 50)
-    say(f"  max|shift - twin| {err:.3g} px; [16, 120, 120]: kernel {ms:.4f} ms (own {own:.4f} ms, "
-        f"with the wrapper's forward DFTs), twin {plain_ms:.4f} ms, "
-        f"torch.fft route {lib_ms:.4f} ms (own {lib_own:.4f} ms)")
-    say("[11 kernel E] matches its twin; conformance holds on the card")
-    return launches, err, ms, own, plain_ms, lib_ms, lib_own
+    out = {"launches": launches, "err": err}
+    for label, (n, pairs) in E_TIMED.items():
+        c, p = (x[:pairs].contiguous() for x in batches[n])
+        check(c.shape[0] == pairs, f"E [{label}]: {c.shape[0]} pairs")
+        out[label] = time_fused(c, p, label)
+    say(f"  max|shift - twin| {err:.3g} px")
+    say("[11 kernel E] matches its twin and the oracle at n = 45 to 480, both designs; uint8, zero, "
+        "NaN, tie, masked cases hold; conformance holds on the card")
+    return out
 
 
 def run_long_range_nodes(dev) -> tuple:
@@ -1388,7 +1562,7 @@ def check_sad_large(dev) -> dict:
     out = {}
     for s, g in ((160, 9), (240, 4)):
         curr, prev, _ = check_sad_exact(dev, rng, g, s, r)
-        out[s] = time_sad(dev, curr, prev, s, r, f"[{g}, 43, 43] S={s}")
+        out[s] = time_sad(dev, curr, prev, s, r, f"[{g}, 43, 43] S={s}", library=True)
     say("[13 kernel C, large blocks] maps bit-identical to the twin")
     return out
 
@@ -1467,8 +1641,9 @@ def check_tf32(dev) -> None:
 
 
 def check_route_constants() -> None:
-    """Phase 2: the engines' route constant and kernels B's and C's geometry
-    helpers agree with the libraries' formulas and the device's limits."""
+    """Phase 2: the engines' route constant, kernels B's and C's geometry
+    helpers and kernels D's and E's plans, routes, shared memory and scratch
+    agree with the libraries' formulas and the device's limits."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
@@ -1503,6 +1678,7 @@ def check_route_constants() -> None:
     import ctypes
 
     pcff = ck.load_library("phase_correlate_fullfused")
+    pcfu = ck.load_library("phase_correlate_fused")
     radices = (ctypes.c_int * 32)()
     for n in range(1, 481):
         stages = pcff.pcff_plan(n, radices)
@@ -1511,6 +1687,9 @@ def check_route_constants() -> None:
         check(pcff.pcff_smem_bytes(n) == ck.pcff_smem_bytes(n), f"kernel D's shared memory at n={n}")
         check(pcff.pcff_scratch_bytes(n) == ck.pcff_scratch_bytes(n), f"kernel D's scratch at n={n}")
         check(ck.pcff_smem_bytes(n) + ck.STATIC_SMEM_BYTES <= limit, f"kernel D at n={n} does not fit")
+        check(pcfu.pcfu_smem_bytes(n) == ck.pcfu_smem_bytes(n), f"kernel E's shared memory at n={n}")
+        check(pcfu.pcfu_scratch_bytes(n) == ck.pcfu_scratch_bytes(n), f"kernel E's scratch at n={n}")
+        check(ck.pcfu_smem_bytes(n) + ck.STATIC_SMEM_BYTES <= limit, f"kernel E at n={n} does not fit")
     peak_grid = {(p, n, r): ck.peak_split(p, n, r) for p, n, r in ((1, 480, 240), (4, 480, 240), (64, 120, 55))}
     occupancy = {n: pcf.pcf_blocks_per_sm(n) for n in range(8, ck.PCF_MAX_PATCH + 1, 8)}
     check(min(occupancy.values()) >= 1 and occupancy[120] >= 2,
@@ -1518,9 +1697,9 @@ def check_route_constants() -> None:
     say(f"  kernel A takes patches up to {ck.PCF_MAX_PATCH} px ({ck.pcf_smem_bytes(ck.PCF_MAX_PATCH)} B "
         f"of {limit}), blocks an SM by patch {occupancy}; kernel C at the node's geometry: "
         f"{node.blocks} blocks of {node.threads} threads, {node.smem} B, {per_sm} an SM by shared "
-        f"memory ({sm_limit} B an SM); kernel B (blocks a surface, rows a block): {peak_grid}; kernel D: "
-        f"one block a pair up to n = {ck.PCFF_MAX_SMALL}, plans and shared "
-        f"memory match for n = 1..480")
+        f"memory ({sm_limit} B an SM); kernel B (blocks a surface, rows a block): {peak_grid}; kernels D "
+        f"and E: one block a pair up to n = {ck.PCFF_MAX_SMALL}, D's plans and routes, D's and E's "
+        f"shared memory and scratch match for n = 1..480")
 
 
 def ptxas_lines(log: str) -> list:
@@ -1626,7 +1805,7 @@ def main() -> int:
     launches_b = run_scale_rotation_node(dev)
     launches_c = run_block_matching_nodes(dev)
     d = check_fullfused_kernel(dev)
-    launches_e, err_e, ms_e, own_e, plain_e, lib_e, lib_own_e = check_fused_kernel(dev)
+    e = check_fused_kernel(dev)
     launches_d, _ = run_long_range_nodes(dev)
     check_sad_large(dev)
     check_tf32(dev)
@@ -1636,6 +1815,7 @@ def main() -> int:
     # None, the bound there)
     b1 = b["1x480"]
     d60 = d["64x60 u8"]
+    e120 = e["16x120"]
     rows = {
         "phase_correlate_frames": (launches_a, err_a, ms_a, own_a, plain_a, lib_a, lib_own_a,
                                    bound("phase_correlate_frames", b=1, n=120, q=4, itemsize=1)),
@@ -1646,8 +1826,9 @@ def main() -> int:
         "phase_correlate_fullfused": (launches_d, d["err"], d60["ms"], d60["own_ms"], d60["plain_ms"],
                                       d60["library_ms"], d60["library_own_ms"],
                                       (d60["bound_ms"], d60["bound_by"])),
-        "phase_correlate_fused": (launches_e, err_e, ms_e, own_e, plain_e, lib_e, lib_own_e,
-                                  bound("phase_correlate_fused", p=16, n=120, itemsize=4)),
+        "phase_correlate_fused": (e["launches"], e["err"], e120["ms"], e120["own_ms"],
+                                  e120["plain_ms"], e120["library_ms"], e120["library_own_ms"],
+                                  (e120["bound_ms"], e120["bound_by"])),
     }
     say(json.dumps({"kernels": [{
         "name": name,

@@ -1,7 +1,9 @@
 // Mixed-radix FFT stages for lines of any length n in shared memory, the
-// device code of kernel D (phase_correlate_fullfused.cu): its one-block
-// design for small patches and the row and column passes of its staged
-// design for large ones.
+// device code of kernels D (phase_correlate_fullfused.cu) and E
+// (phase_correlate_fused.cu): their one-block designs for small patches and
+// the row and column passes of their staged designs for large ones, with
+// what those share around the stages (the route rule, the passes' sizes,
+// the perm table, the cross-power).
 //
 // The plan.  n is factored into radices 8 (while they divide it), then 4, 2,
 // 3 and 5 (kRadices in make_plan), then its remaining prime factors in ascending order,
@@ -314,6 +316,56 @@ __device__ __forceinline__ void inverse(float2* buf, int lines, int ls, int es, 
     for (int s = plan.stages - 1; s >= 0; --s)
       stage<true>(buf, lines, ls, es, plan.n, plan.span[s], plan.radix[s], tab);
   }
+}
+
+// ---------------------------------------------------------------------------
+// around the stages: what kernels D and E share
+// ---------------------------------------------------------------------------
+
+constexpr long long kSmemOptin = 232448;  // shared memory a block of an H100 may opt into
+constexpr int kStaticReserve = 1248;      // static shared memory a one-block kernel may use
+constexpr int kSmallMaxW = 170;           // 8 W^2 + kStaticReserve <= kSmemOptin
+constexpr int kLines = 4;                 // lines a block in a staged row pass, at most
+constexpr int kBand = 4;                  // columns a block in a staged column pass, at most
+constexpr int kLargeSmemCap = 96 * 1024;  // a staged pass's shared memory target
+constexpr float kFltEpsilon = 1.1920928955078125e-07f;  // FLT_EPSILON
+
+__host__ __device__ inline int buffer_side(int n) { return n + (n & 1); }
+
+// The route rule of kernels D and E: one block a pair while a W x W complex
+// buffer (W = buffer_side(n)) and the static reserve fit a block.
+__host__ __device__ inline bool small_route(int n) {
+  const long long w = buffer_side(n);
+  return 8 * w * w + kStaticReserve <= kSmemOptin;
+}
+
+// Lines of line_bytes each that a staged pass puts in one block: as many as
+// kLargeSmemCap holds, at least 1, at most `most`.
+__host__ __device__ inline int pass_lines(long long line_bytes, int most) {
+  const long long fit = kLargeSmemCap / line_bytes;
+  return fit < 1 ? 1 : fit < most ? static_cast<int>(fit) : most;
+}
+
+// pm[k] = perm(plan, k) for k < plan.n, over the block's threads.
+template <typename I>
+__device__ inline void fill_perm(I* pm, const Plan& plan) {
+  for (int k = threadIdx.x; k < plan.n; k += blockDim.x) pm[k] = static_cast<I>(perm(plan, k));
+}
+
+// The normalized cross-power F1 * conj(F2) * rsqrt(|F1 * conj(F2)|^2 + FLT_EPSILON)
+__device__ __forceinline__ float2 cross_power(float2 f1, float2 f2) {
+  const float2 r = cmulc(f1, f2);
+  const float s = rsqrtf(r.x * r.x + r.y * r.y + kFltEpsilon);
+  return make_float2(r.x * s, r.y * s);
+}
+
+// Opt `kernel` into `bytes` of dynamic shared memory, with the carveout
+// that gives shared memory all it can.
+inline cudaError_t allow_smem(const void* kernel, long long bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
 }
 
 }  // namespace fft

@@ -13,12 +13,11 @@
 // surface in shifted coordinates without wrap-around, with an FLT_EPSILON-
 // seeded denominator.  The result is relative to the centre (N/2, N/2).  NaN
 // anywhere inside the search window gives NaN maxval and NaN shifts; NaN
-// outside it is masked to 0.  Kernels B and D split each surface over
-// several blocks (peak_split_kernel: k blocks a surface, as the wrapper's
-// peak_split picks them);
-// kernel E takes one block of peak::kThreads threads a surface
-// (peak_refine_raw_kernel); the one-block design of kernel D reads its
-// surface from shared memory through centroid_store's reader.
+// outside it is masked to 0.  Kernel B and the staged designs of kernels D
+// and E split each surface over several blocks (peak_split_kernel, launched
+// by launch_split: k blocks a surface, as the wrapper's peak_split picks
+// them); the one-block designs of D and E read their surface from shared
+// memory (window_peak).
 
 #pragma once
 
@@ -138,47 +137,52 @@ __device__ __forceinline__ void centroid_store(const float* __restrict__ surf, i
                  centroid_radius, best, best_s, has_nan, p, shift_out, maxval_out, index_out);
 }
 
-// Surface blockIdx.x of surf_g [P, n, n], one block a surface: a grid-stride
-// loop over every element, then block_argmax and centroid_store.  Kernel E
-// runs it on the surfaces in its scratch; kernels B and D split a surface
-// over several blocks instead (peak_split_kernel).
-__global__ void __launch_bounds__(kThreads)
-    peak_refine_raw_kernel(const float* __restrict__ surf_g, int n, int search_radius,
-                           int centroid_radius, float* __restrict__ shift_out,
-                           float* __restrict__ maxval_out, int* __restrict__ index_out) {
-  const int p = blockIdx.x;
-  const float* __restrict__ surf = surf_g + static_cast<size_t>(p) * n * n;
-  const int half = n / 2;
+// Rows (and columns) of an n x n surface inside the search window.
+__host__ __device__ inline int window_rows(int n, int search_radius) {
+  return n / 2 > search_radius ? 2 * search_radius + 1 : n;
+}
 
-  float best = -INFINITY;
-  int best_s = n * n;
+// The raw row (or column) of window row v: the window's raw rows are the
+// two runs 0 .. hi and lo .. n - 1 (hi = search_radius, lo = n -
+// search_radius while n / 2 exceeds the radius, else one run 0 .. n - 1).
+__host__ __device__ inline int window_raw(int v, int n, int search_radius) {
+  return n / 2 > search_radius && v > search_radius ? v + n - 2 * search_radius - 1 : v;
+}
+
+// One block, every thread calling: the peak of a surface whose entry (y,
+// x) is read(y, x), reading only the search window's raw rows and columns,
+// one warp a window row; the masked entries stand as one seed candidate
+// (0.0, shifted index 0) whenever n / 2 exceeds the radius.  Then the
+// block's argmax and the centroid warp, which stores pair p's result.
+template <class Read>
+__device__ void window_peak(Read read, int n, int search_radius, int centroid_radius, int p,
+                            float* __restrict__ shift_out, float* __restrict__ maxval_out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int half = n / 2;
+  const bool masked = half > search_radius;
+  const int rows = window_rows(n, search_radius);
+  float best = masked ? 0.0f : -INFINITY;
+  int best_s = masked ? 0 : n * n;
   int has_nan = 0;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
-    const int y = e / n;
-    const int x = e - y * n;
+  for (int vr = warp; vr < rows; vr += warps) {
+    const int y = window_raw(vr, n, search_radius);
     const int sy = y + half < n ? y + half : y + half - n;
-    const int sx = x + half < n ? x + half : x + half - n;
-    const bool keep = abs(sy - half) <= search_radius && abs(sx - half) <= search_radius;
-    const float v = keep ? surf[e] : 0.0f;
-    if (v != v) {
-      has_nan = 1;
-    } else {
-      const int s = sy * n + sx;
-      if (better(v, s, best, best_s)) {
+    for (int vc = lane; vc < rows; vc += 32) {
+      const int x = window_raw(vc, n, search_radius);
+      const int sx = x + half < n ? x + half : x + half - n;
+      const float v = read(y, x);
+      if (v != v) {
+        has_nan = 1;
+      } else if (better(v, sy * n + sx, best, best_s)) {
         best = v;
-        best_s = s;
+        best_s = sy * n + sx;
       }
     }
   }
   block_argmax(best, best_s, has_nan);
   if (threadIdx.x >= 32) return;
-  centroid_store(surf, n, search_radius, centroid_radius, best, best_s, has_nan, p, shift_out,
-                 maxval_out, index_out);
-}
-
-// Rows (and columns) of an n x n surface inside the search window.
-__host__ __device__ inline int window_rows(int n, int search_radius) {
-  return n / 2 > search_radius ? 2 * search_radius + 1 : n;
+  centroid_store(read, n, search_radius, centroid_radius, best, best_s, has_nan, p, shift_out,
+                 maxval_out, nullptr);
 }
 
 // Whether k blocks of band_rows window rows each cover the window of an
@@ -296,6 +300,28 @@ __global__ void __launch_bounds__(kSplitThreads)
   if (threadIdx.x == 0) counters[p] = 0u;
   centroid_store(surf, n, search_radius, centroid_radius, best, best_s, has_nan, p,
                        shift_out, maxval_out, index_out);
+}
+
+// Launch peak_split_kernel on `stream` over p surfaces `stride` floats
+// apart, k blocks a surface of band_rows window rows each; vec reads 4
+// columns at a time (n % 4 == 0, stride % 4 == 0, 16-byte aligned surf).
+// The part arrays hold p * k entries each; the p counters are zero on entry
+// and left zero.  Kernel B and the staged designs of D and E all launch it
+// here.  Returns the launch's CUDA error code.
+inline cudaError_t launch_split(const float* surf, size_t stride, int p, int n, int search_radius,
+                                int centroid_radius, int k, int band_rows, bool vec,
+                                float* part_val, int* part_idx, int* part_nan, unsigned* counters,
+                                float* shift, float* maxval, int* index, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(p) * k);
+  if (vec)
+    peak_split_kernel<4><<<blocks, kSplitThreads, 0, stream>>>(
+        surf, stride, n, search_radius, centroid_radius, k, band_rows, part_val, part_idx, part_nan,
+        counters, shift, maxval, index);
+  else
+    peak_split_kernel<1><<<blocks, kSplitThreads, 0, stream>>>(
+        surf, stride, n, search_radius, centroid_radius, k, band_rows, part_val, part_idx, part_nan,
+        counters, shift, maxval, index);
+  return cudaGetLastError();
 }
 
 

@@ -50,22 +50,11 @@ int prr_peak_refine_split(const void* surf, int p, int n, int search_radius, int
   auto* part_val = static_cast<float*>(scratch);
   auto* part_idx = reinterpret_cast<int*>(part_val + static_cast<size_t>(p) * k);
   auto* part_nan = part_idx + static_cast<size_t>(p) * k;
-  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(p) * k);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* s = static_cast<const float*>(surf);
-  auto* c = static_cast<unsigned*>(counters);
-  auto* sh = static_cast<float*>(shift);
-  auto* mv = static_cast<float*>(maxval);
-  auto* ix = static_cast<int*>(index);
-  if (vec)
-    peak::peak_split_kernel<4><<<blocks, peak::kSplitThreads, 0, st>>>(
-        s, static_cast<size_t>(n) * n, n, search_radius, centroid_radius, k, band_rows, part_val, part_idx, part_nan, c, sh,
-        mv, ix);
-  else
-    peak::peak_split_kernel<1><<<blocks, peak::kSplitThreads, 0, st>>>(
-        s, static_cast<size_t>(n) * n, n, search_radius, centroid_radius, k, band_rows, part_val, part_idx, part_nan, c, sh,
-        mv, ix);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(peak::launch_split(
+      static_cast<const float*>(surf), static_cast<size_t>(n) * n, p, n, search_radius,
+      centroid_radius, k, band_rows, vec != 0, part_val, part_idx, part_nan,
+      static_cast<unsigned*>(counters), static_cast<float*>(shift), static_cast<float*>(maxval),
+      static_cast<int*>(index), static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

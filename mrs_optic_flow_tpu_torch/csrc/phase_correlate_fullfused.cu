@@ -86,37 +86,20 @@
 
 namespace {
 
-using fft::cmulc;
+using fft::buffer_side;
 using fft::conj;
+using fft::cross_power;
 using fft::csub;
+using fft::kSmallMaxW;
+using fft::small_route;
 
 constexpr int kThreads = fft::kThreads;  // a block of the large design's passes
 constexpr int kSmallThreads = 512;       // a block of the small design
 constexpr int kSmallWarps = kSmallThreads / 32;
-constexpr long long kSmemOptin = 232448;  // shared memory a block of an H100 may opt into
-constexpr int kStaticReserve = 1248;      // static shared memory the small kernel may use
-constexpr int kSmallMaxW = 170;           // 8 W^2 + kStaticReserve <= kSmemOptin
 constexpr int kSlotsPerLane = (kSmallMaxW / 2 + 31) / 32;
-constexpr int kLines = 4;  // packed rows a block in the large design's row passes
-constexpr int kBand = 4;   // columns of each patch a block in its column pass
-constexpr int kLargeSmemCap = 96 * 1024;  // the large passes' shared memory target
-constexpr float kFltEpsilon = 1.1920928955078125e-07f;  // FLT_EPSILON
-
-__host__ __device__ inline int buffer_side(int n) { return n + (n & 1); }
-
-__host__ __device__ inline bool small_route(int n) {
-  const long long w = buffer_side(n);
-  return 8 * w * w + kStaticReserve <= kSmemOptin;
-}
 
 __device__ __forceinline__ float to_f32(uint8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(float v) { return v; }
-
-__device__ __forceinline__ float2 cross_power(float2 f1, float2 f2) {
-  const float2 r = cmulc(f1, f2);
-  const float s = rsqrtf(r.x * r.x + r.y * r.y + kFltEpsilon);
-  return make_float2(r.x * s, r.y * s);
-}
 
 // The two real rows of a packed row Z = a + i b, from its spectrum P:
 // A(l) = (P(l) + conj P(-l)) / 2 and B(l) = (P(l) - conj P(-l)) / 2i.
@@ -132,44 +115,6 @@ __device__ __forceinline__ void hermitian_split(float2 p, float2 q, float2& a, f
 __device__ __forceinline__ void hermitian_pack(float2 u1, float2 u2, float scale, float2& v, float2& w) {
   v = make_float2(scale * (u1.x - u2.y), scale * (u1.y + u2.x));
   w = make_float2(scale * (u1.x + u2.y), scale * (u2.x - u1.y));
-}
-
-// Peak of a surface whose entry (y, x) is read(y, x): only the search
-// window's raw rows and columns (0 .. hi and lo .. n - 1), one warp a window
-// row; the masked entries stand as one seed candidate (0.0, shifted index 0)
-// whenever n / 2 exceeds the radius.  Then the block's argmax and the
-// centroid warp (peak_refine.cuh).
-template <class Read>
-__device__ void window_peak(Read read, int n, int search_radius, int centroid_radius, int p,
-                            float* __restrict__ shift_out, float* __restrict__ maxval_out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  const int half = n / 2;
-  const bool masked = half > search_radius;
-  const int hi = masked ? search_radius : n - 1;
-  const int lo = masked ? n - search_radius : n;
-  const int rows = peak::window_rows(n, search_radius);
-  float best = masked ? 0.0f : -INFINITY;
-  int best_s = masked ? 0 : n * n;
-  int has_nan = 0;
-  for (int vr = warp; vr < rows; vr += warps) {
-    const int y = vr <= hi ? vr : vr + lo - hi - 1;
-    const int sy = y + half < n ? y + half : y + half - n;
-    for (int vc = lane; vc < rows; vc += 32) {
-      const int x = vc <= hi ? vc : vc + lo - hi - 1;
-      const int sx = x + half < n ? x + half : x + half - n;
-      const float v = read(y, x);
-      if (v != v) {
-        has_nan = 1;
-      } else if (peak::better(v, sy * n + sx, best, best_s)) {
-        best = v;
-        best_s = sy * n + sx;
-      }
-    }
-  }
-  peak::block_argmax(best, best_s, has_nan);
-  if (threadIdx.x >= 32) return;
-  peak::centroid_store(read, n, search_radius, centroid_radius, best, best_s, has_nan, p, shift_out,
-                       maxval_out, nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -193,7 +138,7 @@ __global__ void __launch_bounds__(kSmallThreads)
   const T* __restrict__ curr = curr_g + off;
   const T* __restrict__ prev = prev_g + off;
 
-  for (int k = threadIdx.x; k < n; k += kSmallThreads) pm[k] = static_cast<short>(fft::perm(plan, k));
+  fft::fill_perm(pm, plan);
   // 1. load, and the self-conjugate bins [patch][F(0,0), F(h,0), F(0,h), F(h,h)];
   // kLoad elements a thread a round, their loads issued together
   constexpr int kLoad = 4;
@@ -365,8 +310,8 @@ __global__ void __launch_bounds__(kSmallThreads)
 
   // 9. the peak
   const float* sf = reinterpret_cast<const float*>(buf);
-  window_peak([sf, w](int y, int x) { return sf[2 * ((y & ~1) * w + x) + (y & 1)]; }, n,
-              search_radius, centroid_radius, blockIdx.x, shift_out, maxval_out);
+  peak::window_peak([sf, w](int y, int x) { return sf[2 * ((y & ~1) * w + x) + (y & 1)]; }, n,
+                    search_radius, centroid_radius, blockIdx.x, shift_out, maxval_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -392,19 +337,10 @@ __host__ __device__ inline Layout layout(int n) {
   return l;
 }
 
-__host__ __device__ inline int large_lines(int n) {
-  const int fit = kLargeSmemCap / (8 * n + 4);
-  return fit < 1 ? 1 : fit < kLines ? fit : kLines;
-}
-
-__host__ __device__ inline int large_band(int n) {
-  const int fit = kLargeSmemCap / (16 * n + 4);
-  return fit < 1 ? 1 : fit < kBand ? fit : kBand;
-}
-
-__device__ inline void fill_perm(int* pm, const fft::Plan& plan) {
-  for (int k = threadIdx.x; k < plan.n; k += kThreads) pm[k] = fft::perm(plan, k);
-}
+// packed rows a block in the row passes, columns of each patch a block in
+// the column pass
+__host__ __device__ inline int large_lines(int n) { return fft::pass_lines(8LL * n + 4, fft::kLines); }
+__host__ __device__ inline int large_band(int n) { return fft::pass_lines(16LL * n + 4, fft::kBand); }
 
 // 1. packed rows (2p, 2p + 1) of patch s, lines s * pr + p of pair
 // blockIdx.y, `lines` a block: FFT, Hermitian split, half spectra into T.
@@ -419,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
   const int pair = blockIdx.y;
   const int first = blockIdx.x * lines;
   const int count = min(lines, 2 * lay.pr - first);
-  fill_perm(pm, plan);
+  fft::fill_perm(pm, plan);
   for (int e = threadIdx.x; e < count * n; e += kThreads) {
     const int li = e / n, c = e - li * n;
     const int line = first + li;
@@ -499,7 +435,7 @@ __global__ void __launch_bounds__(kThreads)
   const int count = min(lines, lay.pr - first);
   if (blockIdx.x == 0 && blockIdx.y == 0)
     for (int i = threadIdx.x; i < c; i += kThreads) counters[i] = 0u;
-  fill_perm(pm, plan);
+  fft::fill_perm(pm, plan);
   __syncthreads();
   const float2* u = lay.t(scratch, pair, 0);
   const float scale = 1.0f / static_cast<float>(n * n);
@@ -541,19 +477,12 @@ long long large_smem(int n) {
   return rows > cols ? rows : cols;
 }
 
-cudaError_t allow_smem(const void* kernel, long long bytes) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-}
-
 template <typename T, int N>
 int launch_small(const T* curr, const T* prev, int p, const fft::Plan& plan, int search_radius,
                  int centroid_radius, const float2* tab, float* shift, float* maxval,
                  cudaStream_t stream) {
   const long long smem = small_smem(plan.n);
-  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(small_kernel<T, N>), smem);
+  const cudaError_t err = fft::allow_smem(reinterpret_cast<const void*>(small_kernel<T, N>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   small_kernel<T, N><<<p, kSmallThreads, smem, stream>>>(curr, prev, plan, search_radius,
                                                          centroid_radius, tab, shift, maxval);
@@ -588,11 +517,11 @@ int run_large(const T* curr, const T* prev, int p, const fft::Plan& plan, int ch
   const int lines = large_lines(n), band = large_band(n);
   const long long row_smem = static_cast<long long>(lines) * n * 8 + 4LL * n;
   const long long col_smem = 16LL * band * n;
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(rows_forward<T>), row_smem);
-  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(cols_fused), col_smem);
-  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(rows_inverse), row_smem);
+  cudaError_t err = fft::allow_smem(reinterpret_cast<const void*>(rows_forward<T>), row_smem);
+  if (err == cudaSuccess) err = fft::allow_smem(reinterpret_cast<const void*>(cols_fused), col_smem);
+  if (err == cudaSuccess) err = fft::allow_smem(reinterpret_cast<const void*>(rows_inverse), row_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = n % 4 == 0;  // then n * nh is even: every surface 16-byte aligned
+  const bool vec = n % 4 == 0;  // then n * nh is even: every surface 16-byte aligned
   for (int p0 = 0; p0 < p; p0 += chunk) {
     const int c = p - p0 < chunk ? p - p0 : chunk;
     const size_t off = static_cast<size_t>(p0) * n * n;
@@ -606,18 +535,11 @@ int run_large(const T* curr, const T* prev, int p, const fft::Plan& plan, int ch
                                                                                    scratch);
     rows_inverse<<<dim3((lay.pr + lines - 1) / lines, c), kThreads, row_smem, stream>>>(
         plan, lines, tab, scratch, counters, c);
-    const unsigned blocks = static_cast<unsigned>(static_cast<long long>(c) * k);
     const float* surf = reinterpret_cast<const float*>(lay.t(scratch, 0, 1));
     const size_t stride = 4 * lay.half;  // floats from one pair's surface to the next
-    if (vec)
-      peak::peak_split_kernel<4><<<blocks, peak::kSplitThreads, 0, stream>>>(
-          surf, stride, n, search_radius, centroid_radius, k, band_rows, part_val, part_idx,
-          part_nan, counters, shift + 2 * p0, maxval + p0, nullptr);
-    else
-      peak::peak_split_kernel<1><<<blocks, peak::kSplitThreads, 0, stream>>>(
-          surf, stride, n, search_radius, centroid_radius, k, band_rows, part_val, part_idx,
-          part_nan, counters, shift + 2 * p0, maxval + p0, nullptr);
-    err = cudaGetLastError();
+    err = peak::launch_split(surf, stride, c, n, search_radius, centroid_radius, k, band_rows, vec,
+                             part_val, part_idx, part_nan, counters, shift + 2 * p0, maxval + p0,
+                             nullptr, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

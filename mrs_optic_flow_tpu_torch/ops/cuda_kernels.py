@@ -20,15 +20,14 @@ Pallas SAD kernel in :mod:`mrs_optic_flow_tpu.ops.block_matching`:
   launches beyond (``csrc/phase_correlate_fullfused.cu``);
 - kernel E, :func:`phase_correlate_fused`, replaces
   ``pallas_kernels.py::phase_correlate_fused_pallas``: the cross-power, full
-  inverse DFT and peak of forward spectra that the wrapper computes
-  (``csrc/phase_correlate_fused.cu``).
+  complex inverse FFT and peak of forward spectra that the wrapper computes
+  with two float32 matrix products (``csrc/phase_correlate_fused.cu``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a library of its own
 under ``build/torch_kernels/`` at first use, and is bound with ctypes.  The
 headers in ``csrc/`` hold device code that several sources share: the peak
-stage of kernel B (``peak_refine.cuh``, in B, D and E), the mixed-radix FFT
-stages (``fft_stages.cuh``, in D) and the tiled DFT stages
-(``dft_stages.cuh``, in E).
+stage of kernel B (``peak_refine.cuh``, in B, D and E) and the mixed-radix
+FFT stages with their route rule (``fft_stages.cuh``, in D and E).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain twin;
 CUDA tensors launch the kernel or raise.  Nothing falls back from a kernel to
@@ -51,13 +50,13 @@ from mrs_optic_flow_tpu_torch.ops import block_matching
 from mrs_optic_flow_tpu_torch.ops.phase_correlate import (
     DEFAULT_CENTROID_RADIUS,
     DEFAULT_SEARCH_RADIUS,
-    _dft2_real,
     _dft_matrices,
     correlation_surface,
     peak_refine,
     shift_and_mask,
 )
 from mrs_optic_flow_tpu_torch.ops.preprocess import patchify
+from mrs_optic_flow_tpu_torch.utils.precision import pinned
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG_DIR / "csrc"
@@ -109,11 +108,13 @@ _SIGNATURES = {
                                                 _P, _P, _P, _P, _P]),
     },
     "phase_correlate_fused": {
+        "pcfu_smem_bytes": (_LL, [_I]),
         "pcfu_scratch_bytes": (_LL, [_I]),
-        # f1r, f1i, f2r, f2i, p, n, chunk, radii, tab, scratch, shift, maxval,
-        # stream
-        "pcfu_phase_correlate_fused": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                            _P, _P, _P, _P, _P]),
+        # curr, prev, is_u8, p, n, out, stream
+        "pcfu_stack": (_I, [_P, _P, _I, _I, _I, _P, _P]),
+        # spec, p, n, chunk, radii, peak k, band_rows, tab, scratch, shift,
+        # maxval, stream
+        "pcfu_phase_correlate_fused": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     },
 }
 
@@ -654,6 +655,13 @@ def pcff_small(n: int) -> bool:
     return 8 * w * w + PCFF_STATIC_RESERVE <= H100_SMEM_OPTIN_BYTES
 
 
+def _pass_lines(line_bytes: int, most: int) -> int:
+    """Lines of ``line_bytes`` each in one block of a staged pass of kernel
+    D or E: as many as PCFF_SMEM_CAP holds, at least 1, at most ``most``
+    (``fft::pass_lines`` in ``csrc/fft_stages.cuh``)."""
+    return max(1, min(most, PCFF_SMEM_CAP // line_bytes))
+
+
 def pcff_smem_bytes(n: int) -> int:
     """Kernel D's largest dynamic shared memory for patch ``n``
     (``pcff_smem_bytes`` in the source): the one-block design's W x W
@@ -662,8 +670,8 @@ def pcff_smem_bytes(n: int) -> int:
     if pcff_small(n):
         w = n + n % 2
         return 8 * w * w
-    lines = max(1, min(PCFF_LINES, PCFF_SMEM_CAP // (8 * n + 4)))
-    band = max(1, min(PCFF_BAND, PCFF_SMEM_CAP // (16 * n + 4)))
+    lines = _pass_lines(8 * n + 4, PCFF_LINES)
+    band = _pass_lines(16 * n + 4, PCFF_BAND)
     return max(lines * n * 8 + 4 * n, 16 * band * n)
 
 
@@ -687,6 +695,17 @@ def _check_pairs(what: str, dtypes, curr: torch.Tensor, prev: torch.Tensor,
                          f"and {tuple(prev.shape)}")
     if search_radius < 0 or centroid_radius < 0:
         raise ValueError("radii must be non-negative")
+
+
+def _check_fft_patch(what: str, curr: torch.Tensor, smem_bytes) -> None:
+    """Raise on a patch size that kernel D's or E's FFT plan or shared
+    memory (``smem_bytes(n)``) does not take."""
+    n = curr.shape[-1]
+    if n and max(fft_plan(n), default=1) > FFT_MAX_GENERIC_RADIX:
+        raise ValueError(f"{what} takes patches whose prime factors are at most "
+                         f"{FFT_MAX_GENERIC_RADIX}, not {n}")
+    if n:
+        _smem_fits(smem_bytes(n), curr.device, f"{what} at patch {n}")
 
 
 def _launch_staged(wrapper, prefix: str, inputs: tuple, curr: torch.Tensor,
@@ -765,18 +784,69 @@ def phase_correlate_fullfused(
         )
     _check_pairs("phase_correlate_fullfused", (torch.uint8, torch.float32), curr, prev,
                  search_radius, centroid_radius)
-    n = curr.shape[-1]
-    if n and max(fft_plan(n), default=1) > FFT_MAX_GENERIC_RADIX:
-        raise ValueError(f"kernel D takes patches whose prime factors are at most "
-                         f"{FFT_MAX_GENERIC_RADIX}, not {n}")
-    if n:
-        _smem_fits(pcff_smem_bytes(n), curr.device, f"kernel D at patch {n}")
+    _check_fft_patch("kernel D", curr, pcff_smem_bytes)
     inputs = (curr.data_ptr(), prev.data_ptr(), int(curr.dtype == torch.uint8))
     return _launch_staged(phase_correlate_fullfused, "pcff", inputs, curr, search_radius,
                           centroid_radius, split_peak=True)
 
 
 phase_correlate_fullfused.LAUNCHES = 0
+
+
+def pcfu_smem_bytes(n: int) -> int:
+    """Kernel E's largest dynamic shared memory for patch ``n``
+    (``pcfu_smem_bytes`` in the source; E takes kernel D's route,
+    :func:`pcff_small`): the one-block design's n x n complex
+    buffer, or the staged design's row pass (PCFF_LINES rows and a perm
+    table) or column pass (PCFF_BAND columns of one surface)."""
+    if pcff_small(n):
+        return 8 * n * n
+    return max(8 * _pass_lines(8 * n + 4, PCFF_LINES) * n + 4 * n,
+               8 * _pass_lines(8 * n, PCFF_BAND) * n)
+
+
+def pcfu_scratch_bytes(n: int) -> int:
+    """Kernel E's scratch a pair: none for the one-block design; for the
+    staged one its surface ``[n, n]`` float32, its row pass's output ``[n,
+    n]`` complex at the widest window, and the peak's parts and counter."""
+    return 0 if pcff_small(n) else 12 * n * n + 12 * n + 4
+
+
+def half_cols(n: int) -> int:
+    """Columns of a patch's half spectrum in kernel E's forward products:
+    n/2 + 1 rounded up to even, so that every patch's block of G starts
+    16-byte aligned (``half_cols`` in ``csrc/phase_correlate_fused.cu``)."""
+    return (n // 2 + 2) & ~1
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_blocks(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[Ch | Sh]`` (``[n, 2h]``: the first n/2 + 1 columns of C and of S,
+    zero-padded to ``h = half_cols(n)``) and ``[C ; S]`` (``[2n, n]``) of
+    :func:`_dft_matrices` on ``device``: kernel E's forward products."""
+    c, s = _dft_matrices(n)
+    half = np.zeros((n, 2, half_cols(n)), np.float32)
+    half[:, 0, : n // 2 + 1] = c[:, : n // 2 + 1]
+    half[:, 1, : n // 2 + 1] = s[:, : n // 2 + 1]
+    return (torch.from_numpy(half.reshape(n, -1)).to(device),
+            torch.from_numpy(np.vstack([c, s])).to(device))
+
+
+@pinned
+def _fused_spectra(x: torch.Tensor) -> torch.Tensor:
+    """Kernel E's forward products of ``x`` ``[n, B, n]`` float32 (row y of
+    patch b at ``x[y, b]``): ``T = x [Ch | Sh]``, then ``G = [C ; S] T``
+    ``[2n, B * 2h]`` (:func:`_dft_blocks`), two matrix products.  The
+    patches are real, so their row transforms are Hermitian and the
+    columns kx <= n/2 carry them.  Patch b's columns ``2 h b ..`` of G hold
+    ``[[C Tr, C Ti], [S Tr, S Ti]]``, so its spectrum ``W X W`` is ``(G00 -
+    G11) + i (G01 + G10)`` at kx <= n/2, the products and sums of
+    :func:`~mrs_optic_flow_tpu_torch.ops.phase_correlate._dft2_real`, and
+    ``F(ky, kx) = conj F(-ky, -kx)`` beyond."""
+    n, b = x.shape[0], x.shape[1]
+    cs_half, cs_t = _dft_blocks(n, x.device)
+    t = x.reshape(n * b, n) @ cs_half
+    return cs_t @ t.view(n, b * 2 * half_cols(n))
 
 
 def phase_correlate_fused(
@@ -786,28 +856,47 @@ def phase_correlate_fused(
     search_radius: int = DEFAULT_SEARCH_RADIUS,
     centroid_radius: int = DEFAULT_CENTROID_RADIUS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel E: ``[P, N, N]`` float32 patch pairs (any N >= 1) ->
-    ``(shift [P, 2], maxval [P])``.  The forward spectra are float32
-    matrix products in plain PyTorch (``_dft2_real``, as the JAX package
-    left them to XLA); the kernel takes the cross-power, the full complex
-    inverse DFT and the peak.
+    """Kernel E: ``[P, N, N]`` patch pairs of any real dtype, cast to
+    float32 as the JAX function casts them (any N >= 1 whose prime factors
+    are at most FFT_MAX_GENERIC_RADIX) -> ``(shift [P, 2], maxval [P])``;
+    uint8 and float32 patches of the same values give bit-identical results.
 
-    CPU tensors run :func:`phase_correlate_fused_ref`.  CUDA tensors launch
-    ``csrc/phase_correlate_fused.cu`` on the current stream,
-    ``CHUNK_SCRATCH_BYTES`` of pairs at a time; each launch adds one to
+    CPU tensors run :func:`phase_correlate_fused_ref`.  CUDA tensors make the
+    forward spectra in three launches on the current stream: ``pcfu_stack``
+    (both batches as one float32 matrix, uint8 converted exactly; other
+    dtypes are cast to float32 first) and the two products of
+    :func:`_fused_spectra`.  Then ``csrc/phase_correlate_fused.cu`` takes the
+    cross-power, the inverse and the peak: one block a pair for N <=
+    PCFF_MAX_SMALL, else three staged launches, ``CHUNK_SCRATCH_BYTES`` of
+    pairs at a time, the last kernel B's split peak over the blocks
+    :func:`peak_split` names.  Each call adds one to
     ``phase_correlate_fused.LAUNCHES``.
     """
     if curr.device.type == "cpu" and prev.device.type == "cpu":
         return phase_correlate_fused_ref(
             curr, prev, search_radius=search_radius, centroid_radius=centroid_radius,
         )
-    _check_pairs("phase_correlate_fused", (torch.float32,), curr, prev, search_radius,
+    if curr.dtype.is_complex or prev.dtype.is_complex:
+        raise ValueError(f"phase_correlate_fused: expected real patches, got {curr.dtype} and {prev.dtype}")
+    if curr.dtype != prev.dtype or curr.dtype not in (torch.uint8, torch.float32):
+        curr, prev = curr.to(torch.float32), prev.to(torch.float32)
+    _check_pairs("phase_correlate_fused", (torch.uint8, torch.float32), curr, prev, search_radius,
                  centroid_radius)
-    f1r, f1i = _dft2_real(curr)
-    f2r, f2i = _dft2_real(prev)
-    inputs = tuple(f.data_ptr() for f in (f1r, f1i, f2r, f2i))
-    return _launch_staged(phase_correlate_fused, "pcfu", inputs, curr, search_radius,
-                          centroid_radius)
+    _check_fft_patch("kernel E", curr, pcfu_smem_bytes)
+    p, n = curr.shape[0], curr.shape[-1]
+    if not (p and n):
+        return _launch_staged(phase_correlate_fused, "pcfu", (None,), curr, search_radius,
+                              centroid_radius)
+    x = torch.empty((n, 2 * p, n), dtype=torch.float32, device=curr.device)
+    with torch.cuda.device(curr.device):
+        err = load_library("phase_correlate_fused").pcfu_stack(
+            curr.data_ptr(), prev.data_ptr(), int(curr.dtype == torch.uint8), p, n, x.data_ptr(),
+            torch.cuda.current_stream(curr.device).cuda_stream,
+        )
+    _check_launch(err, "phase_correlate_fused")
+    spec = _fused_spectra(x)
+    return _launch_staged(phase_correlate_fused, "pcfu", (spec.data_ptr(),), curr, search_radius,
+                          centroid_radius, split_peak=True)
 
 
 phase_correlate_fused.LAUNCHES = 0

@@ -4,7 +4,9 @@ against the source, the operation and byte counts behind its bound in
 ``PERF.md``, and a float32 NumPy model of its stages (in-place mixed-radix
 FFT with a generic radix, row packing, odd n, Hermitian split and pack, the
 staged design's fused column pass) against a float64 FFT phase correlation.
-The kernel itself runs only on the card (``chip_smoke.py`` phase 10)."""
+Kernel E runs on the same stages, so ``tests/test_torch_kernel_e.py`` takes
+the FFT model from here.  The kernel itself runs only on the card
+(``chip_smoke.py`` phase 10)."""
 
 import math
 import pathlib
@@ -23,7 +25,8 @@ EPS = np.float32(1.1920928955078125e-07)
 MODEL_SIZES = [15, 45, 60, 97, 150, 171, 240]
 
 
-def _cu_int(name, text=CU):
+def _cu_int(name, text=CU + STAGES):
+    """A constant of kernel D's source or of the FFT header both D and E include."""
     return int(eval(re.search(rf"constexpr (?:long long|int) {name} = ([^;]+);", text).group(1)))
 
 

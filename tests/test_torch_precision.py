@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from mrs_optic_flow_tpu_torch.geometry import homography, motion
-from mrs_optic_flow_tpu_torch.ops import phase_correlate
+from mrs_optic_flow_tpu_torch.ops import cuda_kernels, phase_correlate
 from mrs_optic_flow_tpu_torch.utils import precision
 
 RNG = np.random.default_rng(6)
@@ -41,6 +41,7 @@ def _get_rt():
 SITES = {
     "_dft2_real": lambda: phase_correlate._dft2_real(_t(2, 12, 12)),
     "_idft2_real_output": lambda: phase_correlate._idft2_real_output(_t(2, 12, 12), _t(2, 12, 12)),
+    "_fused_spectra": lambda: cuda_kernels._fused_spectra(_t(12, 4, 12)),
     "_solve_h4": lambda: homography._solve_h4(_t(5, 4, 2), _t(5, 4, 2)),
     "_solve_h_qr_null": lambda: homography._solve_h_qr_null(_t(16, 9), _h()),
     "_sv_middle_3x3": lambda: homography._sv_middle_3x3(_h()),
