@@ -109,11 +109,37 @@ Phases, each printing a line when it finishes:
     scale/rotation decodes of 6 frames, the method-4 node's twists on 8,
     kernel D's twin and kernel E at n = 480 within TF32_TOL of the same run
     with TF32 off (each pinned contraction runs in full float32), how far
-    an unpinned 480² DFT product moves printed; the setting restored.
+    an unpinned 480² DFT product moves printed; the setting restored;
+15. serving at ``configs/default.yaml``'s geometry (480² crop, 4x4 x 120
+    px, fx = fy = 420, 256 RANSAC hypotheses): (a) ``BatchPipeline.step_pre``
+    on 4,096 uint8 480² pairs of phase 5's texture at 8 known velocities,
+    issued with host synchronisation made an error
+    (``torch.cuda.set_sync_debug_mode("error")``), at least 95% of the pairs
+    ok and every ok twist within 0.15 m/s; on 64 of them ``get_rt_batch``
+    against the per-pair ``get_rt`` on the same hypotheses (the Gumbel
+    draws' top 4): ``ok`` and ``n_inliers`` equal, ``tran`` within
+    ``TRAN_PARITY``; (b) frame-pairs/s of ``step_pre`` at B = 4096 with one
+    call in flight and of ``ServingLoop(batch_size=512)`` over 4,096
+    requests at depths 1 and 8 (one dispatch under the no-sync block), each
+    with its device time split into kernel A, the geometry and the rest (or
+    the copies), launches and the device's idle share; (c) ``FleetServer``
+    with 128 streams of BGR 752x480 frames for 10 ticks (a masked stream
+    whose next dt spans two ticks, a reset, a checkpoint round trip that
+    repeats the uninterrupted tick, every valid twist within 0.15 m/s, tick
+    p50/p90), a long-range fleet with tilt-corrected heights within 0.25
+    m/s, and 16 streams with the scale/rotation estimator fused into the
+    pipeline and beside it (decodes within 1 deg and 0.03, fused = unfused
+    within 1e-4); (d) ``FleetFeeder`` over the fleet, frames pushed from a
+    second thread past full rings of 2 (dropped and skipped counted), the
+    next tick's twists within budget.  Every part counts kernel A's (and in
+    the scale/rotation fleet kernel B's) launches: one a call or tick.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
-one JSON object describing each kernel: its launches in its node phase
+a ``serving`` JSON object (phase 15's throughputs, tick times, the
+geometry's device time at B = 4096 and kernel A's share, with the card's
+``nvidia-smi`` name and power limit), then one JSON object describing each
+kernel: its launches in its node phase
 (kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
 conformance check of phase 11), its largest difference from its twin, its
 time through the wrapper (``ms``, CUDA events over back-to-back calls), its
@@ -261,7 +287,8 @@ def own_by_kernel(fn, reps: int) -> dict:
                 fn()
             torch.cuda.synchronize()
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # a profiler range's span on the card is not a kernel
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
                 durations.setdefault(e.name, []).append(e.self_device_time_total)
         if durations:
             break
@@ -1756,6 +1783,521 @@ def compare_kernel_a(dev) -> None:
         in_turns(f"kernel A B={b} (max|shift difference| {err:.2e} px)", runs, n_reps)
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: serving                                                            #
+# --------------------------------------------------------------------------- #
+
+#: phase 15(a)'s per-pair velocities [m/s], pair i at SERVING_V[i % 8]
+SERVING_V = [(0.8, -0.5), (-0.6, 0.3), (0.2, 0.9), (-0.9, -0.4),
+             (0.5, 0.5), (0.0, -0.8), (0.7, 0.1), (-0.3, -0.2)]
+SERVING_OK_SHARE = 0.95  # of the pairs at least
+SERVING_BATCH = 512  # ServingLoop's batch
+SERVING_REQUESTS = 4096
+SERVING_SUB = 64  # pairs of the per-pair get_rt comparison
+#: getRT batched against per pair on the same hypotheses, float32: the twist
+#: parity of tests/test_torch_node.py (the float32 decomposition moves tran
+#: by up to 9e-4 m/s between the two chains, tests/test_torch_batched_geometry.py)
+TRAN_PARITY = 1e-3  # m/s
+#: the same in float64: tran [m/s] and rot (tests/test_torch_batched_geometry.py
+#: holds both chains to 1e-9 there)
+F64_PARITY = 1e-4
+FLEET_STREAMS = 128
+FLEET_TICKS = 10
+#: phase 15(c): stream i's integer pixel flow a tick and its height
+FLEET_D = [(-8, 5), (6, -3), (-2, -7), (7, 4), (-5, 0), (0, 6), (3, -8), (-4, -4)]
+FLEET_H = [1.5, 2.0, 2.5]
+FLEET_MASKED = (3, 5)  # (tick, stream) without a frame
+FLEET_RESET = (6, 7)  # (tick, stream) reset just before the tick
+LR_FLEET_HEIGHT = 0.8  # m
+LR_FLEET_TILT = (0.1, -0.08)  # roll, pitch [rad]
+LR_FLEET_TICKS = 8
+SR_FLEET_STREAMS = 16
+SR_FLEET_STEPS = [(2.0, 1.02), (-1.5, 1 / 1.02), (1.0, 1.01), (-2.5, 1.0)]  # (deg, zoom) a tick
+SR_FUSED_TOL = 1e-4
+#: kernel A's own kernel in a profile
+A_KERNEL = re.compile(r"phase_correlate_frames_kernel")
+
+
+def no_host_sync(dev):
+    """A block in which any host synchronisation on the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def block():
+        if dev.type != "cuda":
+            yield
+            return
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    return block()
+
+
+def reset_launches() -> dict:
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.LAUNCHES = 0
+    return wrappers
+
+
+def serving_pairs() -> tuple:
+    """Phase 5's texture as uint8 480² pairs, one a velocity of
+    ``SERVING_V`` at ``HEIGHT`` and ``DT`` (content moved by ``-f v dt / h``,
+    an exact Fourier shift), each class on its own part of the texture.
+    Returns (prev [K, 480, 480], curr [K, 480, 480], v [K, 2])."""
+    from oracle import fourier_shift, smooth_random_image
+
+    tex = smooth_random_image(np.random.default_rng(0), 1024, cutoff=0.25)
+    prev, curr = [], []
+    for k, (vx, vy) in enumerate(SERVING_V):
+        base = np.roll(tex, (61 * k, 97 * k), (0, 1))
+        moved = fourier_shift(base, -FX * vx * DT / HEIGHT, -FY * vy * DT / HEIGHT)
+        for out, img in ((prev, base), (curr, moved)):
+            out.append(np.clip(np.rint(img[:480, :480]), 0, 255).astype(np.uint8))
+    return np.stack(prev), np.stack(curr), np.array(SERVING_V)
+
+
+def worst_err(tran: np.ndarray, truth: np.ndarray, ok: np.ndarray) -> float:
+    """Largest ``|v - truth|`` in x or y over the ok rows (0 with none)."""
+    err = np.abs(tran[:, :2] - truth).max(axis=1)[ok]
+    return float(err.max()) if err.size else 0.0
+
+
+def timed_calls(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` with one call in flight: each call's
+    CUDA events, closed by a host readback of its result before the next."""
+    import torch
+
+    fn()[0].cpu()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        out[0].cpu()  # host readback
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def device_split(fn, wall_ms: float, reps: int = 2) -> dict:
+    """Device time of one ``fn()`` call (a pipeline step) from one
+    ``torch.profiler`` trace of ``reps`` calls: every kernel's duration
+    summed, kernel A's own kernel, the geometry (every kernel launched inside
+    the pipeline's ``GEOMETRY_RANGE``) and the rest (gating, casts, copies);
+    launches a call; the device's idle share against ``wall_ms``, the call's
+    wall time.  Kernel A's time is the median of its launches that the trace
+    holds, once a call (the wrapper counts the calls' launches): in this
+    script's process phase 15's traces hold one of two A launches, a fresh
+    process's hold both, and A's work does not depend on the data."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrs_optic_flow_tpu_torch.parallel.pipeline import GEOMETRY_RANGE
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    a = kernel_wrappers()["phase_correlate_frames"]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that came back without kernel A is taken again
+        a.LAUNCHES = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == cuda and not e.is_user_annotation]
+        a_traced = [e.self_device_time_total for e in kernels if A_KERNEL.search(e.name)]
+        if a_traced:
+            break
+    ranges = [e for e in events if e.device_type == cpu and e.name == GEOMETRY_RANGE]
+    check(a_traced and a.LAUNCHES == reps and len(ranges) == reps,
+          f"the trace holds {len(a_traced)} of kernel A's {a.LAUNCHES} launches and {len(ranges)} "
+          f"geometry ranges, for {reps} calls")
+    others = [e for e in kernels if not A_KERNEL.search(e.name)]
+    a_ms = float(np.median(a_traced)) / 1e3
+    total = sum(e.self_device_time_total for e in others) / reps / 1e3 + a_ms
+    geo = sum(e.device_time_total for e in ranges) / reps / 1e3
+    check(0 < geo < total, f"geometry {geo} ms of {total} ms")
+    return {"device_ms": total, "kernel_a_ms": a_ms, "geometry_ms": geo, "rest_ms": total - a_ms - geo,
+            "launches": round(len(others) / reps) + 1, "kernel_a_in_trace": len(a_traced),
+            "kernel_a_share": a_ms / total, "idle_share": max(0.0, 1.0 - total / wall_ms)}
+
+
+def check_pipeline_batch(dev, pipe, prev, curr, truth, gen) -> dict:
+    """Phase 15(a): ``step_pre`` on the batch under the no-sync block, the
+    twists against the truth, and the first ``SERVING_SUB`` pairs' geometry
+    against the per-pair ``get_rt`` on the same hypotheses."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.geometry.batched import draw_gumbel, get_rt_batch, gumbel_top4
+    from mrs_optic_flow_tpu_torch.geometry.motion import get_rt
+
+    b = prev.shape[0]
+    heights = torch.full((b,), HEIGHT, device=dev)
+    dts = torch.full((b,), DT, device=dev)
+    rates = torch.zeros((b, 4), device=dev)
+    rates[:, 3] = 1.0
+    c2b = rates[0].clone()
+    iters, p = pipe.ransac_iterations, pipe.engine.num_windows
+    gumbel = draw_gumbel(iters, p, b, dev, gen)
+    pipe.step_pre(prev[:4], curr[:4], heights[:4], dts[:4], rates[:4], c2b, generator=gen)  # warm-up
+    wrappers = reset_launches()
+    with no_host_sync(dev):
+        out = pipe.step_pre(prev, curr, heights, dts, rates, c2b, gumbel=gumbel)
+    launches = {k: fn.LAUNCHES for k, fn in wrappers.items()}
+    check(launches["phase_correlate_frames"] == 1, f"step_pre launches {launches}")
+    ok = out.ok.cpu().numpy()
+    tran = out.tran.cpu().numpy()
+    emax = worst_err(tran, truth, ok)
+    say(f"  step_pre B={b}: {ok.mean():.4f} of the pairs ok, max |v - truth| {emax:.4f} m/s, "
+        f"no host sync before the readback")
+    check(ok.mean() >= SERVING_OK_SHARE, f"{ok.mean():.4f} of the pairs ok")
+    check(emax <= TWIST_TOL, f"twist errors up to {emax} m/s")
+
+    s = SERVING_SUB
+    shifts = out.shifts[:s]
+    g = gumbel[:, :, :s].contiguous()
+    top4 = gumbel_top4(g, torch.isfinite(shifts).all(-1).T)
+    parity = {}
+    for dtype in (torch.float32, torch.float64):
+        # the same sub-batch through the batched and the per-pair chains, on
+        # the same hypotheses, neither reading anything back
+        x = dict(shifts=shifts.to(dtype), heights=heights[:s].to(dtype), dts=dts[:s].to(dtype),
+                 cam=pipe._cam.to(dtype), c2b=c2b.to(dtype), rates=rates[:s].to(dtype))
+        kw = dict(frame_size=pipe.frame_size, patch=pipe.sample_point_size, ransac_iterations=iters)
+        with no_host_sync(dev):
+            sub = get_rt_batch(x["shifts"], x["heights"], x["dts"], pipe.ul_x, x["cam"], pipe._dist,
+                               x["c2b"], x["rates"], gumbel=g, **kw)
+            ones = [get_rt(x["shifts"][i], x["heights"][i], x["dts"][i], pipe.ul_x, x["cam"], pipe._dist,
+                           x["c2b"], x["rates"][i], hyp_idx=top4[:, :, i], **kw) for i in range(s)]
+        sub_ok, sub_n, sub_tran, sub_rot = (v.cpu().numpy() for v in (sub.ok, sub.n_inliers, sub.tran, sub.rot))
+        one_ok, one_n, one_tran, one_rot = (torch.stack(v).cpu().numpy() for v in zip(
+            *((o.ok, o.n_inliers, o.tran, o.rot) for o in ones)))
+        check(np.array_equal(one_ok, sub_ok) and np.array_equal(one_n, sub_n),
+              f"{dtype}: per-pair ok/n_inliers {one_ok}/{one_n}, batched {sub_ok}/{sub_n}")
+        tran_diff = float(np.abs(one_tran - sub_tran)[sub_ok].max(initial=0.0))
+        rot_diff = float(np.abs(one_rot - sub_rot)[sub_ok].max(initial=0.0))
+        parity[str(dtype).split(".")[-1]] = {"tran": tran_diff, "rot": rot_diff}
+        if dtype == torch.float32:
+            check(np.array_equal(sub_ok, ok[:s]), "the sub-batch's ok differs from the batch's")
+            batch_diff = float(np.nanmax(np.abs(sub_tran - tran[:s])))
+            check(tran_diff <= TRAN_PARITY and batch_diff <= TRAN_PARITY,
+                  f"float32 tran differs by {tran_diff}, {batch_diff}")
+        else:
+            check(tran_diff <= F64_PARITY and rot_diff <= F64_PARITY,
+                  f"float64 tran differs by {tran_diff}, rot by {rot_diff}")
+    say(f"  get_rt_batch on {s} pairs against the per-pair get_rt on the same hypotheses, neither "
+        f"synchronising the host: ok and n_inliers equal; float32 max |tran difference| "
+        f"{parity['float32']['tran']:.3g} m/s (against the whole batch's {batch_diff:.3g}), |rot| "
+        f"{parity['float32']['rot']:.3g}; float64 {parity['float64']['tran']:.3g} and "
+        f"{parity['float64']['rot']:.3g}")
+    return {"ok_share": float(ok.mean()), "max_twist_err": emax, "get_rt_parity": parity}
+
+
+def measure_pipeline(dev, pipe, prev, curr, gen) -> dict:
+    """Phase 15(b), ``step_pre`` at the batch, one call in flight."""
+    import torch
+
+    b = prev.shape[0]
+    heights, dts = torch.full((b,), HEIGHT, device=dev), torch.full((b,), DT, device=dev)
+    rates = torch.zeros((b, 4), device=dev)
+    rates[:, 3] = 1.0
+    c2b = rates[0].clone()
+
+    def call():
+        return pipe.step_pre(prev, curr, heights, dts, rates, c2b, generator=gen)
+
+    ms = timed_calls(call, 5)
+    split = device_split(call, ms)
+    out = {"ms": ms, "frame_pairs_per_s": b / ms * 1e3, **split}
+    say(f"  step_pre B={b}: {ms:.3f} ms = {out['frame_pairs_per_s']:.1f} frame-pairs/s; device "
+        f"{split['device_ms']:.3f} ms (kernel A {split['kernel_a_ms']:.3f}, geometry "
+        f"{split['geometry_ms']:.3f}, rest {split['rest_ms']:.3f}), {split['launches']} launches, "
+        f"idle {split['idle_share']:.3f}; the trace held {split['kernel_a_in_trace']} of kernel A's 2 "
+        f"launches (its time is their median)")
+    return out
+
+
+def measure_serving_loop(dev, pipe, prev_np, curr_np, truth) -> dict:
+    """Phase 15(b), ``ServingLoop`` over ``SERVING_REQUESTS`` requests at
+    depths 1 and 8; the dispatch of one batch under the no-sync block."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.runtime.serving import ServingLoop, ServingRequest
+
+    k = len(truth)
+    reqs = [ServingRequest(prev=prev_np[i % k], curr=curr_np[i % k], height=HEIGHT, dt=DT)
+            for i in range(SERVING_REQUESTS)]
+    want = truth[np.arange(SERVING_REQUESTS) % k]
+    out = {}
+    for depth in (1, 8):
+        loop = ServingLoop(pipe, batch_size=SERVING_BATCH, depth=depth, seed=depth)
+        list(loop.run(reqs[:SERVING_BATCH * depth]))  # warm-up: every staging slot allocated
+        wrappers = reset_launches()
+        t0 = time.perf_counter()
+        with no_host_sync(dev):
+            pending = loop._dispatch(reqs[:SERVING_BATCH])
+        dispatch_ms = (time.perf_counter() - t0) * 1e3  # the host's part: staging and launches
+        check(wrappers["phase_correlate_frames"].LAUNCHES == 1, "dispatch launches")
+        loop._collect(*pending)
+        wrappers = reset_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = list(loop.run(reqs))
+        stop.record()
+        stop.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        ms = start.elapsed_time(stop)
+        batches = SERVING_REQUESTS // SERVING_BATCH
+        check(wrappers["phase_correlate_frames"].LAUNCHES == batches,
+              f"depth {depth}: {wrappers['phase_correlate_frames'].LAUNCHES} kernel A launches "
+              f"for {batches} batches")
+        ok = np.array([r.ok for r in res])
+        emax = worst_err(np.array([r.tran for r in res]), want, ok)
+        check(len(res) == SERVING_REQUESTS and ok.mean() >= SERVING_OK_SHARE and emax <= TWIST_TOL,
+              f"depth {depth}: {len(res)} results, {ok.mean()} ok, max err {emax}")
+        prof_batches = 2
+        prof_reqs = reqs[:prof_batches * SERVING_BATCH]
+        by = own_by_kernel(lambda: list(loop.run(prof_reqs)), 1)
+        a_by = [v for name, v in by.items() if A_KERNEL.search(name)]
+        check(len(a_by) == 1, f"kernel A in the trace: {a_by}")
+        a_ms = a_by[0][1] / a_by[0][0]  # its median launch, one a batch (see device_split)
+        by = {name: v for name, v in by.items() if not A_KERNEL.search(name)}
+        dev_ms = sum(v for _, v in by.values()) / prof_batches + a_ms
+        copy_ms = sum(v for name, (_, v) in by.items() if "Memcpy" in name) / prof_batches
+        per_batch = ms / batches
+        out[depth] = {"ms": ms, "wall_ms": wall, "frame_pairs_per_s": SERVING_REQUESTS / ms * 1e3,
+                      "device_ms_per_batch": dev_ms, "kernel_a_ms_per_batch": a_ms,
+                      "copy_ms_per_batch": copy_ms, "dispatch_host_ms": dispatch_ms,
+                      "launches_per_batch": sum(n for n, _ in by.values()) / prof_batches + 1,
+                      "idle_share": max(0.0, 1.0 - dev_ms / per_batch)}
+        say(f"  ServingLoop batch {SERVING_BATCH} depth {depth}: {SERVING_REQUESTS} requests in "
+            f"{ms:.1f} ms = {out[depth]['frame_pairs_per_s']:.1f} frame-pairs/s ({ok.mean():.4f} ok, "
+            f"max |v - truth| {emax:.4f} m/s); a batch: {per_batch:.3f} ms, its dispatch "
+            f"{dispatch_ms:.3f} ms of host time, device {dev_ms:.3f} ms "
+            f"(kernel A {a_ms:.3f}, copies {copy_ms:.3f}), {out[depth]['launches_per_batch']:.0f} "
+            f"launches, idle {out[depth]['idle_share']:.3f}")
+    return out
+
+
+def fleet_frames(tex, t: int, n: int, lost=()) -> np.ndarray:
+    """BGR 752x480 frames of ``n`` streams at tick ``t``: stream i's view of
+    the texture moved by ``t * FLEET_D[i % 8]`` px (exact integer shifts of
+    the periodic texture), each stream on its own part of it."""
+    frames = np.empty((n, 480, 752, 3), np.uint8)
+    for i in range(n):
+        dx, dy = FLEET_D[i % len(FLEET_D)]
+        view = np.roll(tex, (t * dy + 29 * i, t * dx + 43 * i), (0, 1))[:480, :752]
+        frames[i] = view[..., None]
+    return frames
+
+
+def fleet_truth(n: int, heights: np.ndarray) -> np.ndarray:
+    """Each stream's velocity [m/s]: ``-d h / (f dt)`` for its flow ``d``
+    a tick of ``DT``, over however many ticks its pair spans."""
+    d = np.array([FLEET_D[i % len(FLEET_D)] for i in range(n)], float)
+    return -d * heights[:, None] / FX / DT
+
+
+def run_fleets(dev) -> dict:
+    """Phase 15(c) and (d): the fleet of ``FLEET_STREAMS`` streams with a
+    masked stream, a reset and a checkpoint round trip, the long-range
+    fleet, the scale/rotation fleets fused and unfused, and the feeder."""
+    import tempfile
+    import threading
+
+    from oracle import smooth_random_image
+
+    from mrs_optic_flow_tpu_torch.models import ScaleRotationEstimator
+    from mrs_optic_flow_tpu_torch.parallel import BatchPipeline
+    from mrs_optic_flow_tpu_torch.runtime import FleetFeeder, FleetServer
+
+    n = FLEET_STREAMS
+    tex = np.clip(np.rint(smooth_random_image(np.random.default_rng(0), 1024, cutoff=0.25)), 0,
+                  255).astype(np.uint8)
+    cam = np.array([[FX, 0, 376.0], [0, FY, 240.0], [0, 0, 1]], np.float32)
+    pipe = BatchPipeline(camera_matrix=cam, dist_coeffs=np.zeros(5, np.float32), device=dev)
+    heights = np.array([FLEET_H[i % len(FLEET_H)] for i in range(n)])
+    out = {}
+
+    # (c) the short-range fleet
+    fleet = FleetServer(pipe, n, seed=1)
+    a = kernel_wrappers()["phase_correlate_frames"]
+    tick_ms, n_ok, n_valid, worst = [], 0, 0, 0.0
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        for t in range(FLEET_TICKS):
+            if t == FLEET_RESET[0]:
+                fleet.reset(FLEET_RESET[1])
+            mask = np.ones(n, bool)
+            if t == FLEET_MASKED[0]:
+                mask[FLEET_MASKED[1]] = False
+            frames = fleet_frames(tex, t, n)
+            ck = str(pathlib.Path(tmp) / "fleet")
+            if t == FLEET_TICKS - 2:
+                fleet.save_state(ck)
+            a.LAUNCHES = 0
+            t0 = time.perf_counter()
+            tick = fleet.tick(frames, np.full(n, t * DT), heights, mask=mask).materialize()
+            if t:
+                tick_ms.append((time.perf_counter() - t0) * 1e3)
+                check(a.LAUNCHES == 1, f"tick {t}: {a.LAUNCHES} kernel A launches")
+            expect = mask & (t > 0)
+            if t == FLEET_RESET[0]:
+                expect[FLEET_RESET[1]] = False
+            check(not (tick.ok & ~expect).any(), f"tick {t}: a stream without a valid pair is ok")
+            emax = worst_err(tick.tran, fleet_truth(n, heights), tick.ok)
+            check(emax <= TWIST_TOL, f"tick {t}: twist errors up to {emax}")
+            n_ok, n_valid = n_ok + int(tick.ok.sum()), n_valid + int(expect.sum())
+            worst = max(worst, emax)
+            if t == FLEET_MASKED[0] + 1:
+                s = FLEET_MASKED[1]
+                check(abs(tick.dts[s] - 2 * DT) < 1e-9 and tick.ok[s], f"masked stream: dt {tick.dts[s]}")
+            if t == FLEET_TICKS - 2:
+                # a server restarted from the checkpoint saved before this tick
+                resumed = FleetServer(pipe, n, seed=99)
+                resumed.load_state(ck)
+                again = resumed.tick(frames, np.full(n, t * DT), heights, mask=mask).materialize()
+                check(np.array_equal(again.ok, tick.ok)
+                      and np.allclose(again.tran, tick.tran, atol=1e-6, rtol=0, equal_nan=True),
+                      "the resumed fleet's tick differs from the uninterrupted run's")
+        check(n_ok >= SERVING_OK_SHARE * n_valid, f"{n_ok} of {n_valid} valid stream ticks ok")
+    p50, p90 = np.percentile(tick_ms, 50), np.percentile(tick_ms, 90)
+    say(f"  fleet {n} streams x {FLEET_TICKS} ticks: {n_ok} of {n_valid} valid stream ticks ok, max "
+        f"|v - truth| {worst:.4f} m/s; masked stream's dt spans two ticks; reset regated; checkpoint "
+        f"resumed to the same tick; tick p50 {p50:.3f} ms, p90 {p90:.3f} ms (upload of {n} BGR "
+        f"frames to readback)")
+    out["fleet"] = {"streams": n, "tick_p50_ms": p50, "tick_p90_ms": p90, "max_twist_err": worst}
+
+    # (c) the long-range fleet: tilt-corrected heights
+    lr = FleetServer(pipe, n, long_range=True)
+    lr_h = np.full(n, LR_FLEET_HEIGHT)
+    rolls, pitches = np.full(n, LR_FLEET_TILT[0]), np.full(n, LR_FLEET_TILT[1])
+    tilt = 1.0 / (np.cos(LR_FLEET_TILT[0]) * np.cos(LR_FLEET_TILT[1]))
+    lr_ms, lr_worst = [], 0.0
+    for t in range(LR_FLEET_TICKS):
+        frames = fleet_frames(tex, t, n)
+        a.LAUNCHES = 0
+        t0 = time.perf_counter()
+        tick = lr.tick(frames, np.full(n, t * DT), lr_h, rolls=rolls, pitches=pitches).materialize()
+        if t:
+            lr_ms.append((time.perf_counter() - t0) * 1e3)
+            check(a.LAUNCHES == 1, f"long-range tick {t}: {a.LAUNCHES} kernel A launches")
+            emax = worst_err(tick.tran, fleet_truth(n, lr_h) * tilt, np.ones(n, bool))
+            check(tick.ok.all() and emax <= LR_TWIST_TOL, f"long-range tick {t}: {tick.ok.sum()} ok, "
+                  f"max err {emax}")
+            lr_worst = max(lr_worst, emax)
+    say(f"  long-range fleet {n} streams: every stream ok, max |v - truth| {lr_worst:.4f} m/s "
+        f"(tilt-corrected); tick p50 {np.percentile(lr_ms, 50):.3f} ms, every tick "
+        f"{[round(x, 3) for x in lr_ms]} ms")
+    out["long_range_fleet"] = {"tick_p50_ms": float(np.percentile(lr_ms, 50)), "tick_ms": lr_ms,
+                               "max_twist_err": lr_worst}
+
+    # (c) scale/rotation fleets, fused and unfused (log-polar 480)
+    m = SR_FLEET_STREAMS
+    cam_sq = np.array([[FX, 0, 240.0], [0, FY, 240.0], [0, 0, 1]], np.float32)
+    sr = ScaleRotationEstimator(device=dev)
+    kw = dict(camera_matrix=cam_sq, dist_coeffs=np.zeros(5, np.float32), device=dev)
+    fused = FleetServer(BatchPipeline(**kw, scale_rotation=sr), m, seed=2)
+    plain = FleetServer(BatchPipeline(**kw), m, scale_rotation=sr, seed=2)
+    check(fused._sr_fused and not plain._sr_fused, "fused / unfused")
+    steps = [SR_FLEET_STEPS[i % len(SR_FLEET_STEPS)] for i in range(m)]
+    seqs = [render_affine(3, deg, zoom, seed=i) for i, (deg, zoom) in enumerate(steps)]
+    b = kernel_wrappers()["peak_refine_raw"]
+    sr_rot_err = sr_scale_err = fused_diff = 0.0
+    for t in range(3):
+        frames = np.stack([s[t] for s in seqs])
+        ticks = []
+        for f in (fused, plain):
+            a.LAUNCHES = b.LAUNCHES = 0
+            ticks.append(f.tick(frames, np.full(m, t * DT), np.full(m, HEIGHT)).materialize())
+            if t:
+                check(a.LAUNCHES == 1 and b.LAUNCHES == 1, f"scale/rotation fleet tick {t}: A "
+                      f"{a.LAUNCHES}, B {b.LAUNCHES} launches")
+        if t:
+            tf, tp = ticks
+            rot_deg = np.rad2deg(tf.rotation)
+            want_deg = np.array([d for d, _ in steps])
+            want_scale = 1.0 / np.array([z for _, z in steps])
+            sr_rot_err = max(sr_rot_err, float(np.abs(rot_deg - want_deg).max()))
+            sr_scale_err = max(sr_scale_err, float(np.abs(tf.scale - want_scale).max()))
+            fused_diff = max(fused_diff, float(np.abs(tf.rotation - tp.rotation).max()),
+                             float(np.abs(tf.scale - tp.scale).max()))
+    say(f"  scale/rotation fleet {m} streams: decodes within {sr_rot_err:.4f} deg and {sr_scale_err:.5f}; "
+        f"fused against unfused {fused_diff:.3g}")
+    check(sr_rot_err <= SR_ROT_TOL and sr_scale_err <= SR_SCALE_TOL, "scale/rotation decodes")
+    check(fused_diff <= SR_FUSED_TOL, f"fused and unfused decodes differ by {fused_diff}")
+    out["scale_rotation_fleet"] = {"streams": m, "rot_err_deg": sr_rot_err, "scale_err": sr_scale_err,
+                                   "fused_vs_unfused": fused_diff}
+
+    # (d) the feeder: a capture thread fills every ring past its capacity
+    feeder = FleetFeeder(FleetServer(pipe, n, seed=3), frame_shape=(480, 752, 3), capacity=2)
+    check(feeder.tick(heights) is None, "a tick with no frame")
+
+    def capture(ticks):
+        for t in ticks:
+            frames = fleet_frames(tex, t, n)
+            for i in range(n):
+                feeder.push(i, frames[i], t * DT)
+
+    th = threading.Thread(target=capture, args=([0, 1, 2, 3],))
+    th.start()
+    th.join(timeout=120)
+    check(not th.is_alive(), "the capture thread did not finish")
+    first = feeder.tick(heights).materialize()  # takes tick 1, skips 0; 2 and 3 were dropped
+    check(feeder.dropped == 2 * n and feeder.frames_skipped == n and not first.ok.any(),
+          f"dropped {feeder.dropped}, skipped {feeder.frames_skipped}")
+    th = threading.Thread(target=capture, args=([4],))
+    th.start()
+    th.join(timeout=120)
+    check(not th.is_alive(), "the capture thread did not finish")
+    a.LAUNCHES = 0
+    tick = feeder.tick(heights).materialize()
+    check(a.LAUNCHES == 1, "feeder tick launches")
+    emax = worst_err(tick.tran, fleet_truth(n, heights), tick.ok)
+    check(tick.ok.mean() >= SERVING_OK_SHARE and emax <= TWIST_TOL and np.allclose(tick.dts, 3 * DT),
+          f"feeder tick: {tick.ok.sum()} ok, max err {emax}")
+    say(f"  feeder: {feeder.dropped} frames dropped and {feeder.frames_skipped} skipped for full rings "
+        f"of 2; the next tick {tick.ok.sum()} of {n} ok over 3 ticks of motion, max |v - truth| "
+        f"{emax:.4f} m/s")
+    out["feeder"] = {"dropped": feeder.dropped, "skipped": feeder.frames_skipped}
+    return out
+
+
+def run_serving(dev) -> dict:
+    """Phase 15.  Returns the ``serving`` line's object."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.parallel import BatchPipeline
+
+    prev_np, curr_np, v = serving_pairs()
+    k = len(v)
+    cls = torch.arange(BENCH_BATCH) % k
+    prev = torch.from_numpy(prev_np).to(dev)[cls.to(dev)]
+    curr = torch.from_numpy(curr_np).to(dev)[cls.to(dev)]
+    truth = v[cls.numpy()]
+    cam = np.array([[FX, 0, 240.0], [0, FY, 240.0], [0, 0, 1]], np.float32)
+    pipe = BatchPipeline(camera_matrix=cam, dist_coeffs=np.zeros(5, np.float32), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {"pipeline": check_pipeline_batch(dev, pipe, prev, curr, truth, gen)}
+    out["step_pre"] = measure_pipeline(dev, pipe, prev, curr, gen)
+    del prev, curr
+    torch.cuda.empty_cache()
+    out["serving_loop"] = measure_serving_loop(dev, pipe, prev_np, curr_np, v)
+    out.update(run_fleets(dev))
+    say("[15 serving] step_pre, ServingLoop, fleets and feeder within budget")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -1809,6 +2351,7 @@ def main() -> int:
     launches_d, _ = run_long_range_nodes(dev)
     check_sad_large(dev)
     check_tf32(dev)
+    serving = run_serving(dev)
 
     # each kernel at the shape its row times: (launches, error, ms through
     # the wrapper, own ms, plain ms, library ms or None, library own ms or
@@ -1830,6 +2373,7 @@ def main() -> int:
                                   e120["plain_ms"], e120["library_ms"], e120["library_own_ms"],
                                   (e120["bound_ms"], e120["bound_by"])),
     }
+    say(json.dumps({"serving": {"card": smi, **serving}}))
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

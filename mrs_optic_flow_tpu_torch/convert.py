@@ -1,13 +1,21 @@
-"""State carried across from the JAX node.
+"""State carried across from the JAX node and fleet.
 
 The system has no learned weights.  What crosses between the two packages
-is the node's streaming state and calibration, as the JAX node's
-``save_state`` writes them to ``.npz`` (``runtime/node.py:1048-1075``): the
-flow carry ``prev``/``first``, ``begin``, ``first_image``, ``uav_height``,
-``angular_rate_quat``, ``c2b_quat``, ``cam_yaw``, ``camera_matrix``,
-``dist_coeffs``, the readiness flags ``got_height``/``got_tfs``, and the
-scale/rotation carry ``sr_lp``/``sr_first`` (an empty ``sr_lp`` when the
-writer ran no estimator).
+is streaming state, as the JAX package's ``save_state`` writes it to
+``.npz``:
+
+- the node's (``runtime/node.py:1048-1075``): the flow carry
+  ``prev``/``first``, ``begin``, ``first_image``, ``uav_height``,
+  ``angular_rate_quat``, ``c2b_quat``, ``cam_yaw``, ``camera_matrix``,
+  ``dist_coeffs``, the readiness flags ``got_height``/``got_tfs``, and the
+  scale/rotation carry ``sr_lp``/``sr_first`` (an empty ``sr_lp`` when the
+  writer ran no estimator);
+- the fleet's (``runtime/fleet.py:156-207``): the preprocessed previous
+  frames ``prev`` ``[N, F, F]`` and the log-polar carry ``prev_lp`` (each
+  empty when absent), ``prev_stamps``, ``seen`` and ``long_range``.  The
+  JAX fleet adds its RANSAC ``key``, a threefry key with no torch
+  equivalent; the port's fleet writes its generator state as ``torch_rng``
+  instead, which the JAX fleet ignores.
 """
 
 from __future__ import annotations
@@ -112,3 +120,53 @@ def node_state_from_numpy(
         sr_lp=sr_lp,
         sr_first=sr_first,
     )
+
+
+@dataclasses.dataclass
+class FleetState:
+    """The fleet state a checkpoint restores."""
+
+    prev: Optional[torch.Tensor]  # [N, F, F] preprocessed previous frames
+    prev_lp: Optional[torch.Tensor]  # [N, L, L] log-polar carry
+    prev_stamps: np.ndarray  # [N] float64
+    seen: np.ndarray  # [N] bool
+    #: the port's generator state (``torch_rng``); None in a JAX checkpoint
+    rng_state: Optional[torch.Tensor]
+
+
+def fleet_state_from_numpy(
+    arrays: Mapping[str, np.ndarray],
+    device,
+    *,
+    n_streams: int,
+    long_range: bool,
+    lp_res: Optional[int],
+) -> FleetState:
+    """Checkpoint arrays of either package's fleet -> :class:`FleetState`
+    with the carries on ``device``, refused with the JAX fleet's
+    ``ValueError``s: another range mode, another stream count, a frame batch
+    of another size, a log-polar carry for a fleet with no estimator
+    (``lp_res`` None) or of another geometry.  A JAX ``key`` is ignored."""
+    if bool(arrays["long_range"]) != long_range:
+        raise ValueError("checkpoint range mode does not match this server")
+    seen = np.asarray(arrays["seen"])
+    if seen.shape != (n_streams,):
+        raise ValueError(f"checkpoint has {seen.shape[0]} streams, server has {n_streams}")
+    prev = None
+    if arrays["prev"].size:
+        prev = torch.from_numpy(np.array(arrays["prev"])).to(device)
+        if prev.shape[0] != n_streams:
+            raise ValueError("checkpoint frame batch does not match the stream count")
+    prev_lp = None
+    if "prev_lp" in arrays and arrays["prev_lp"].size:
+        if lp_res is None:
+            raise ValueError(
+                "checkpoint carries a log-polar state but this server has no scale_rotation estimator")
+        if arrays["prev_lp"].shape != (n_streams, lp_res, lp_res):
+            raise ValueError(
+                f"checkpoint log-polar carry {arrays['prev_lp'].shape} does not match this "
+                f"server's ({n_streams}, {lp_res}, {lp_res})")
+        prev_lp = torch.from_numpy(np.array(arrays["prev_lp"])).to(device)
+    rng = torch.from_numpy(np.array(arrays["torch_rng"])) if "torch_rng" in arrays else None
+    return FleetState(prev=prev, prev_lp=prev_lp, prev_stamps=np.asarray(arrays["prev_stamps"]),
+                      seen=seen.astype(bool), rng_state=rng)

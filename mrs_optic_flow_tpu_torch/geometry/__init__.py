@@ -1,1 +1,2 @@
-"""Per-sample geometry: undistortion, RANSAC homography, decomposition, getRT."""
+"""Geometry: undistortion, RANSAC homography, decomposition, getRT and
+get2DT, per pair and batched (:mod:`.batched`)."""

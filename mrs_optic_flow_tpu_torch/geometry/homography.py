@@ -29,16 +29,17 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _dlt_rows(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted DLT design matrix ``[2N, 9]`` for H mapping src -> dst;
-    ``w`` ``[N]`` row weights (0 masks a point out)."""
-    x, y = src[:, 0], src[:, 1]
-    u, v = dst[:, 0], dst[:, 1]
+    """Weighted DLT design matrix ``[..., 2N, 9]`` for H mapping src -> dst
+    (points ``[..., N, 2]``); ``w`` ``[..., N]`` row weights (0 masks a point
+    out)."""
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
     one = torch.ones_like(x)
     zero = torch.zeros_like(x)
     r1 = torch.stack([x, y, one, zero, zero, zero, -x * u, -y * u, -u], dim=-1)
     r2 = torch.stack([zero, zero, zero, x, y, one, -x * v, -y * v, -v], dim=-1)
-    a = torch.cat([r1, r2], dim=0)
-    return a * torch.cat([w, w], dim=0)[:, None]
+    a = torch.cat([r1, r2], dim=-2)
+    return a * torch.cat([w, w], dim=-1)[..., None]
 
 
 def _norm_h(h: torch.Tensor) -> torch.Tensor:
@@ -247,7 +248,10 @@ def decompose_homography(h: torch.Tensor) -> HomographyDecomposition:
     solution set of ``cv::decomposeHomographyMat(H, I)``, up to four
     ``{R, t, n}`` with ``H ~ gamma * (R + t n^T)``, ordered
     ``[Ra+, Ra-, Rb+, Rb-]``.  For a (near-)pure rotation solution 0 is
-    ``{H_n, 0, 0}`` and ``n_solutions == 1``."""
+    ``{H_n, 0, 0}`` and ``n_solutions == 1``.  ``v`` is clamped away from 0
+    (``|v| <= 1e-30`` -> 1e-30) before it divides, as in the JAX package's
+    batched decomposition (``geometry/batched.py:373``); ``v = 2 s1 s3`` of
+    ``H_n``'s singular values, so only a singular H reaches the clamp."""
     eye = torch.eye(3, dtype=h.dtype, device=h.device)
     gamma = _sv_middle_3x3(h)
     hn = h / gamma[..., None, None]
@@ -298,10 +302,12 @@ def decompose_homography(h: torch.Tensor) -> HomographyDecomposition:
     ta_star = half_nt[..., None] * (esii_t_r[..., None] * nb - nt[..., None] * na)
     tb_star = half_nt[..., None] * (esii_t_r[..., None] * na - nt[..., None] * nb)
 
+    inv_v = 2.0 / torch.where(v.abs() > 1e-30, v, 1e-30)
+
     def rmat_from(tstar, nvec):
         # R = Hn (I - (2/v) tstar n^T)
         outer = tstar[..., :, None] * nvec[..., None, :]
-        return hn @ (eye - (2.0 / v)[..., None, None] * outer)
+        return hn @ (eye - inv_v[..., None, None] * outer)
 
     ra = rmat_from(ta_star, na)
     rb = rmat_from(tb_star, nb)

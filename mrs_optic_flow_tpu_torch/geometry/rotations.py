@@ -18,7 +18,7 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
 
 def quat_inverse(q: torch.Tensor) -> torch.Tensor:
     """tf2 inverse of a unit quaternion: conjugate."""
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,15 +53,19 @@ def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tenso
 
 def quat_axis_angle(q: torch.Tensor) -> tuple:
     """tf2 ``getAxis()``/``getAngle()``: angle ``2*acos(w)`` in [0, 2*pi),
-    unit axis; (1, 0, 0) for near-identity rotations."""
+    unit axis; (1, 0, 0) for near-identity rotations.  Builds no constant
+    from the host, so it never waits for the device."""
     q = quat_normalize(q)
     w = torch.clamp(q[..., 3], -1.0, 1.0)
     angle = 2.0 * torch.arccos(w)
     s2 = 1.0 - w * w
     safe = s2 >= 10.0 * torch.finfo(q.dtype).eps
-    s = torch.sqrt(torch.where(safe, s2, torch.ones_like(s2)))
-    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
-    axis = torch.where(safe[..., None], q[..., :3] / s[..., None], unit_x)
+    s = torch.sqrt(torch.where(safe, s2, 1.0))
+    axis = torch.stack([
+        torch.where(safe, q[..., 0] / s, 1.0),
+        torch.where(safe, q[..., 1] / s, 0.0),
+        torch.where(safe, q[..., 2] / s, 0.0),
+    ], dim=-1)
     return axis, angle
 
 

@@ -24,6 +24,26 @@ def distort_points(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     return torch.stack([xd, yd], dim=-1)
 
 
+def undistort_xy(px, py, fx, fy, cx, cy, dist: Optional[torch.Tensor], *, iterations: int = 5):
+    """:func:`undistort_points` on pixel components ``px``/``py`` and camera
+    entries that broadcast with them (a principal point per sample, say)
+    -> normalized ``(x, y)``."""
+    xd = (px - cx) / fx
+    yd = (py - cy) / fy
+    if dist is None:
+        return xd, yd
+    k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))
+    x, y = xd, yd
+    for _ in range(iterations):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1.0 + r2 * (k1 + r2 * (k2 + r2 * k3)))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (xd - dx) * icdist
+        y = (yd - dy) * icdist
+    return x, y
+
+
 def undistort_points(
     pts: torch.Tensor,
     camera_matrix: torch.Tensor,
@@ -34,22 +54,7 @@ def undistort_points(
     """Pixel points ``[..., 2]`` -> undistorted normalized coords ``[..., 2]``
     (``cv::undistortPoints(pts, out, K, dist)``, ``src/optic_flow.cpp:549``).
     ``dist=None`` is a distortion-free camera: only the ``K^-1`` step."""
-    fx = camera_matrix[..., 0, 0]
-    fy = camera_matrix[..., 1, 1]
-    cx = camera_matrix[..., 0, 2]
-    cy = camera_matrix[..., 1, 2]
-    xd = (pts[..., 0] - cx) / fx
-    yd = (pts[..., 1] - cy) / fy
-    if dist is None:
-        return torch.stack([xd, yd], dim=-1)
-
-    k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))
-    x, y = xd, yd
-    for _ in range(iterations):
-        r2 = x * x + y * y
-        icdist = 1.0 / (1.0 + r2 * (k1 + r2 * (k2 + r2 * k3)))
-        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
-        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
-        x = (xd - dx) * icdist
-        y = (yd - dy) * icdist
+    k = camera_matrix
+    x, y = undistort_xy(pts[..., 0], pts[..., 1], k[..., 0, 0], k[..., 1, 1], k[..., 0, 2],
+                        k[..., 1, 2], dist, iterations=iterations)
     return torch.stack([x, y], dim=-1)

@@ -2,6 +2,7 @@
 CPU: built without a device on a host with no CUDA device they raise, and
 never fall back to the CPU."""
 
+import numpy as np
 import pytest
 import torch
 import torch_parity  # noqa: F401  (pins torch to one thread)
@@ -18,10 +19,18 @@ from mrs_optic_flow_tpu_torch.models import (
     ScaleRotationEstimator,
     make_engine,
 )
+from mrs_optic_flow_tpu_torch.parallel import BatchPipeline
+from mrs_optic_flow_tpu_torch.runtime import FleetServer, ServingLoop
 from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
 from mrs_optic_flow_tpu_torch.utils.device import resolve_device
 
 SMALL = dict(frame_size=128, sample_point_size=32)
+CAMERA = dict(camera_matrix=np.array([[80.0, 0, 64.0], [0, 80.0, 64.0], [0, 0, 1.0]], np.float32),
+              dist_coeffs=np.zeros(5, np.float32))
+
+
+def _pipeline(**kw):
+    return BatchPipeline(**SMALL, **CAMERA, **kw)
 
 #: entry point -> a call that builds it at a small size, given extra kwargs
 ENTRY_POINTS = {
@@ -35,6 +44,10 @@ ENTRY_POINTS = {
     "make_engine(3)": lambda **kw: make_engine(3, **SMALL, scan_radius=8, **kw),
     "make_engine(4)": lambda **kw: make_engine(4, **SMALL, **kw),
     "make_engine(5)": lambda **kw: make_engine(5, **SMALL, scan_radius=8, step_size=8, **kw),
+    # the serving layer runs on its pipeline's device
+    "BatchPipeline": _pipeline,
+    "ServingLoop": lambda **kw: ServingLoop(_pipeline(**kw), batch_size=2),
+    "FleetServer": lambda **kw: FleetServer(_pipeline(**kw), 2),
 }
 
 
@@ -65,3 +78,10 @@ def test_resolve_device_without_a_card(device, ok, monkeypatch):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(device)
+
+
+def test_batch_pipeline_refuses_a_mesh():
+    """The JAX package's mesh sharding is not ported: a mesh raises instead
+    of being ignored."""
+    with pytest.raises(NotImplementedError, match="mesh"):
+        _pipeline(mesh=object(), device="cpu")
