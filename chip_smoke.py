@@ -132,14 +132,42 @@ Phases, each printing a line when it finishes:
     within 1e-4); (d) ``FleetFeeder`` over the fleet, frames pushed from a
     second thread past full rings of 2 (dropped and skipped counted), the
     next tick's twists within budget.  Every part counts kernel A's (and in
-    the scale/rotation fleet kernel B's) launches: one a call or tick.
+    the scale/rotation fleet kernel B's) launches: one a call or tick;
+16. flights (``tests/test_flightsim.py`` on the port): the port's
+    ``FlightSimulator`` renders each profile once at full width (752x480,
+    fx 420) and ``OpticFlowNode`` flies it on ``configs/default.yaml``
+    through the port's ``load_config`` (480 crop, 4x4 windows of 120 px),
+    warmed up, at the test's budgets: (a) the level flight under
+    ``height_based`` and ``takeoff_based`` (``takeoff_height`` 1.2; both
+    topic families, 2 and 1 switches, RMSE, coverage, NEES); (b) the banked
+    flight under each ``ang_rate_source``, the ``tilt_correction`` A/B with
+    its deadband and a 90 deg camera mount; (c) a low banked flight in long
+    range at mount yaw 0 and pi/2; (d) ``scale_rotation`` (log-polar 240) on
+    the level descent (vz and yaw rate) and the banked tilt gate with its
+    threshold sweep; (e) the level flight recorded to ``.ofrec`` and
+    replayed (stamps and frames bit-exact), flown again as BGR uint8 frames
+    with ``tpu.host_preprocess`` (``native.gray_crop`` on every frame after
+    the first, twists equal to (a)'s within 1e-6 m/s) and with
+    ``store_video`` to ``.ofrec`` and ``.avi`` (read back, the same overlays);
+    (f) ``test_fleet_flight_closed_loop``'s three streams through one
+    ``FleetServer`` with scale/rotation fused; (g) ``python -m
+    mrs_optic_flow_tpu_torch`` as four subprocesses started together:
+    ``--flight banked`` exits 0 with the report as its last line, ``--flight
+    level --flight-rmse-budget 0.001`` exits 1, ``--synthetic`` with
+    ``tpu.host_preprocess=true`` and ``--replay`` of (e)'s file exit 0.
+    Every flight sets the counts to 0 just before its frames: kernel A once
+    a frame after the first, kernel B too with scale/rotation (none
+    without), both once a fleet tick after the first; each prints its RMSE, the node's p50
+    and p90 latency and its render and node wall times.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
 a ``serving`` JSON object (phase 15's throughputs, tick times, the
 geometry's device time at B = 4096 and kernel A's share, with the card's
-``nvidia-smi`` name and power limit), then one JSON object describing each
-kernel: its launches in its node phase
+``nvidia-smi`` name and power limit), a ``flights`` object (phase 16's
+rows, the card, its wall time), then one JSON object describing each
+kernel: its launches in its node phase and over phase 16's flights
+(``flight_launches``)
 (kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
 conformance check of phase 11), its largest difference from its twin, its
 time through the wrapper (``ms``, CUDA events over back-to-back calls), its
@@ -2298,6 +2326,481 @@ def run_serving(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: flights                                                            #
+# --------------------------------------------------------------------------- #
+
+#: tests/test_flightsim.py's budgets, (a) the level flight under both
+#: long-range policies with takeoff_height 1.2 m
+LEVEL_MODES = (("height_based", 2), ("takeoff_based", 1))
+HOST_PRE_TWIST_TOL = 1e-6  # m/s, (e): host and device preprocessing, same pixels
+#: (g) the CLI subprocesses: label -> (arguments, exit status wanted)
+CLI_TIMEOUT_S = 300
+
+
+class Flights:
+    """Phase 16's flights through the port's ``FlightSimulator`` and node on
+    ``dev`` at full width (752x480 renders, 480 crop, 4x4 windows of 120 px,
+    ``configs/default.yaml`` through the port's ``load_config``).  Each
+    profile is rendered once and flown as often as its checks need.  The
+    launch counts are checked on a CUDA device only: on the CPU (a
+    rehearsal) the wrappers run their twins and count nothing."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.rows = {}
+        #: kernel -> its launches over every flight's frames, the fleet
+        #: flight's included
+        self.totals = dict.fromkeys(KERNELS, 0)
+
+    def render(self, sim, label: str) -> list:
+        t0 = time.perf_counter()
+        frames = sim.frames()
+        self.rows.setdefault(label, {})["render_s"] = time.perf_counter() - t0
+        return frames
+
+    def fly(self, sim, frames, label: str, c2b=(0.0, 0.0, 0.0, 1.0), stream_frames=None, **overrides):
+        """One flight: a node from ``load_config(overrides=...)``, warmed up
+        on the flight's camera, fed ``stream_frames`` (default ``frames``)
+        in the flight's events.  Every kernel's count is set to 0 just
+        before the frames and read just after: kernel A on every frame after
+        the first, kernel B on every one too with scale/rotation.  Returns
+        (node, published, report).  The row also counts ``native.gray_crop``
+        calls over the frames (host preprocessing)."""
+        from mrs_optic_flow_tpu_torch import native
+        from mrs_optic_flow_tpu_torch.config import load_config
+        from mrs_optic_flow_tpu_torch.runtime import FrameStream, OpticFlowNode
+        from mrs_optic_flow_tpu_torch.runtime.flightsim import evaluate_flight
+
+        published = []
+        cfg = load_config(overrides=overrides)
+        node = OpticFlowNode(cfg, device=self.dev, publish=lambda t, m: published.append((t, m)),
+                             log=lambda s: None)
+        node.set_transforms(c2b)
+        node.on_camera_info(sim.scene.camera_info())
+        node.warmup()
+        stream = FrameStream(node)
+        sim.events_into(stream, frames if stream_frames is None else stream_frames)
+        wrappers = reset_launches()
+        native.gray_crop.CALLS = 0
+        t0 = time.perf_counter()
+        stream.run()
+        wall = time.perf_counter() - t0
+        gray_crops = native.gray_crop.CALLS
+        launches = {name: fn.LAUNCHES for name, fn in wrappers.items()}
+        for name, count in launches.items():
+            self.totals[name] += count
+        node.close()
+        rep = evaluate_flight(sim.samples, published)
+        processed = len(sim.samples) - 1
+        if self.dev.type == "cuda":
+            check(launches["phase_correlate_frames"] == processed,
+                  f"{label}: kernel A launched {launches['phase_correlate_frames']} times "
+                  f"for {processed} frames")
+            want_b = processed if cfg.scale_rotation else 0
+            check(launches["peak_refine_raw"] == want_b,
+                  f"{label}: kernel B launched {launches['peak_refine_raw']} times, {want_b} wanted")
+        lat = np.array([m for t, m in published if t == "processing_latency_out"][1:]) * 1e3
+        row = self.rows.setdefault(label, {})
+        row.update({"frames": len(sim.samples), "rmse_xy": rep.rmse_xy, "nees_xy": rep.nees_xy,
+                    "p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90)),
+                    "node_s": wall, "launches_a": launches["phase_correlate_frames"],
+                    "launches_b": launches["peak_refine_raw"], "gray_crops": gray_crops})
+        say(f"  {label}: rmse_xy {rep.rmse_xy:.4f} m/s, max {rep.max_err_xy:.4f}, nees "
+            f"{rep.nees_xy:.4f}, latency p50 {row['p50_ms']:.3f} ms p90 {row['p90_ms']:.3f} ms, "
+            f"render {row.get('render_s', 0.0):.2f} s, node {wall:.2f} s; launches A "
+            f"{row['launches_a']}, B {row['launches_b']}")
+        return node, published, rep
+
+
+def check_level_report(rep, node, label: str) -> None:
+    """``test_flight_closed_loop``'s trajectory budgets."""
+    check(rep.rmse_xy < 0.12 and rep.max_err_xy < 0.35, f"{label}: {rep}")
+    check(rep.within_3sigma >= 0.97 and rep.nan_published == 0, f"{label}: {rep}")
+    check(all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), f"{label}: {rep}")
+    check(rep.dropped_at_switches == 0, f"{label}: {rep}")
+    check(node.health["consecutive_failures"] <= 1, f"{label}: {node.health}")
+    check(0.03 < rep.nees_xy < 2.0, f"{label}: nees {rep.nees_xy}")
+
+
+def check_banked_report(rep, node, label: str) -> None:
+    """``_assert_banked_budgets`` of ``tests/test_flightsim.py``."""
+    check(rep.rmse_xy < 0.11 and rep.max_err_xy < 0.30, f"{label}: {rep}")
+    check(rep.nan_published == 0 and rep.within_3sigma >= 0.97, f"{label}: {rep}")
+    check(0.03 < rep.nees_xy < 2.0, f"{label}: nees {rep.nees_xy}")
+    check(rep.per_phase_rmse["climb"] < 0.09, f"{label}: {rep.per_phase_rmse}")
+    check(all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), f"{label}: {rep}")
+    check(node.health["consecutive_failures"] <= 1, f"{label}: {node.health}")
+
+
+def sr_pairs(samples, published, skip: int) -> list:
+    """(sample, ``scale_rotation_out`` message) by stamp from ``samples[skip:]``."""
+    sr = {round(float(m["stamp"]), 6): m for t, m in published if t == "scale_rotation_out"}
+    return [(s, sr[round(s.t, 6)]) for s in samples[skip:] if round(s.t, 6) in sr]
+
+
+def read_avi(path: str) -> tuple:
+    """(width, height, frames [N, H, W, 3] uint8) of an uncompressed BGR24
+    top-down AVI as ``runtime/viz.py::VideoWriter`` writes it, read chunk by
+    chunk: the header's frame count must equal the ``00db`` chunks."""
+    import struct
+
+    data = pathlib.Path(path).read_bytes()
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI ", f"{path}: not an AVI")
+    check(struct.unpack_from("<I", data, 4)[0] == len(data) - 8, f"{path}: RIFF size")
+    total = struct.unpack_from("<I", data, 32 + 16)[0]  # avih dwTotalFrames
+    w, h = struct.unpack_from("<2I", data, 32 + 32)  # avih dwWidth, dwHeight
+    movi = data.index(b"movi") + 4
+    frames, pos = [], movi
+    while data[pos:pos + 4] == b"00db":
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        frames.append(np.frombuffer(data, np.uint8, size, pos + 8).reshape(h, w, 3))
+        pos += 8 + size
+    check(data[pos:pos + 4] == b"idx1", f"{path}: no index after the frames")
+    check(total == len(frames), f"{path}: header says {total} frames, {len(frames)} written")
+    return w, h, np.stack(frames)
+
+
+def run_cli(dev, replay_path: str) -> dict:
+    """Phase 16(g): the CLI as subprocesses, all started together, each
+    with its own time limit; every one is stopped before this returns."""
+    runs = {
+        "flight banked": (["--flight", "banked", "--quiet"], 0),
+        "flight level, budget 0.001": (["--flight", "level", "--quiet",
+                                         "--flight-rmse-budget", "0.001"], 1),
+        "synthetic, host_preprocess": (["--synthetic", "--frames", "20", "--quiet", "--set",
+                                        "tpu.host_preprocess=true"], 0),
+        "replay .ofrec": (["--replay", replay_path, "--quiet"], 0),
+    }
+    procs = {}
+    try:
+        for label, (argv, _) in runs.items():
+            procs[label] = subprocess.Popen(
+                [sys.executable, "-m", "mrs_optic_flow_tpu_torch", *argv, "--device", str(dev)],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out = {}
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        for label, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            want = runs[label][1]
+            check(proc.returncode == want, f"CLI {label}: exit {proc.returncode}, {want} wanted; "
+                                           f"stderr {stderr[-2000:]}")
+            out[label] = {"rc": proc.returncode, "last_line": stdout.strip().splitlines()[-1]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    banked = json.loads(out["flight banked"]["last_line"])
+    check(banked["rmse_xy"] < 0.15 and banked["nan_published"] == 0
+          and set(banked["per_phase_coverage"]) == {"climb", "cruise", "brake", "descent"},
+          f"CLI banked flight report {banked}")
+    level = json.loads(out["flight level, budget 0.001"]["last_line"])
+    check(level["rmse_xy"] < 0.15 and level["nan_published"] == 0, f"CLI level flight {level}")
+    check("twists from 20 synthetic frames" in out["synthetic, host_preprocess"]["last_line"],
+          out["synthetic, host_preprocess"])
+    check("replay frames" in out["replay .ofrec"]["last_line"], out["replay .ofrec"])
+    say(f"  CLI: banked exit 0, rmse_xy {banked['rmse_xy']:.4f}; level with budget 0.001 exit 1 "
+        f"(rmse_xy {level['rmse_xy']:.4f}); {out['synthetic, host_preprocess']['last_line']}; "
+        f"{out['replay .ofrec']['last_line']}")
+    return {"banked_rmse_xy": banked["rmse_xy"], "level_rmse_xy": level["rmse_xy"]}
+
+
+def run_fleet_flight(dev, totals: dict) -> dict:
+    """Phase 16(f): ``test_fleet_flight_closed_loop`` on the port: three
+    streams of 160 px renders through one ``FleetServer`` with the
+    scale/rotation estimator fused, cruising at distinct velocities (stream
+    1 drops a frame), then hovering while each yaws at its own rate; kernels
+    A and B once a tick after the first, each tick's launches added to
+    ``totals`` (kernel -> count)."""
+    from mrs_optic_flow_tpu_torch.models import ScaleRotationConfig, ScaleRotationEstimator
+    from mrs_optic_flow_tpu_torch.parallel import BatchPipeline
+    from mrs_optic_flow_tpu_torch.runtime import FleetServer, SyntheticScene
+    from mrs_optic_flow_tpu_torch.utils.quat_np import np_quat_from_rpy
+
+    n, dt = 3, 0.1
+    n_cruise, n_yaw = 9, 7
+    heights = np.array([2.0, 2.5, 3.0])
+    v_world = np.array([[0.8, 0.0], [-0.5, 0.6], [0.0, -0.9]])
+    yaw_rates = np.array([0.8, -0.7, 0.6])  # rad/s, phase 2 only
+    fx = 120.0
+    scenes = [SyntheticScene(width=160, height_px=160, fx=fx, fy=fx, uav_height=heights[i],
+                             seed=11 + i, texture_cutoff=0.3, texture_scale=60.0) for i in range(n)]
+    k_mat = np.array([[fx, 0, 80.0], [0, fx, 80.0], [0, 0, 1.0]], np.float32)
+    sr = ScaleRotationEstimator(ScaleRotationConfig(resolution=128, magnitude=15.0), device=dev)
+    pipe = BatchPipeline(frame_size=128, sample_point_size=32, camera_matrix=k_mat,
+                         dist_coeffs=np.zeros(5, np.float32), ransac_iterations=32,
+                         scale_rotation=sr, device=dev)
+    fleet = FleetServer(pipe, n)
+    check(fleet._sr_fused, "fleet flight: scale/rotation not fused")
+    t_total = 1 + n_cruise + n_yaw
+    pos = np.zeros((t_total, n, 2))
+    yaw = np.zeros((t_total, n))
+    for t in range(1, t_total):
+        cruising = t <= n_cruise
+        pos[t] = pos[t - 1] + (v_world * dt if cruising else 0.0)
+        yaw[t] = yaw[t - 1] + (0.0 if cruising else yaw_rates * dt)
+    drop_tick = 5  # stream 1 misses this cruise frame
+    errs = {i: {"cru": [], "yaw": []} for i in range(n)}
+    rot_errs, tick_ms = [], []
+    wrappers = kernel_wrappers()
+    for t in range(t_total):
+        frames = np.stack([
+            np.clip(np.round(scenes[i].render_pose(tuple(pos[t, i]), (0.0, 0.0, yaw[t, i]))),
+                    0, 255).astype(np.uint8)
+            for i in range(n)
+        ])
+        mask = np.ones(n, bool)
+        if t == drop_tick:
+            mask[1] = False
+        in_yaw = t > n_cruise
+        rate_quats = np.stack([np_quat_from_rpy(0.0, 0.0, yaw_rates[i] if in_yaw else 0.0)
+                               for i in range(n)]).astype(np.float32)
+        for fn in wrappers.values():
+            fn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        tick = fleet.tick(frames, np.full(n, 100.0 + t * dt), heights, rate_quats=rate_quats,
+                          mask=mask).materialize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        for name, fn in wrappers.items():
+            totals[name] += fn.LAUNCHES
+        if dev.type == "cuda":  # none at the first tick, which has no previous frame
+            want = int(t > 0)
+            check(wrappers["phase_correlate_frames"].LAUNCHES == want
+                  and wrappers["peak_refine_raw"].LAUNCHES == want,
+                  f"fleet flight tick {t}: A {wrappers['phase_correlate_frames'].LAUNCHES}, "
+                  f"B {wrappers['peak_refine_raw'].LAUNCHES} launches, {want} wanted")
+        if t == 0:
+            check(not tick.ok.any(), "fleet flight: the first tick published")
+            continue
+        for i in range(n):
+            if t == drop_tick and i == 1:
+                check(not tick.ok[i], "fleet flight: the dropped frame published")
+                continue
+            check(tick.ok[i] and np.all(np.isfinite(tick.tran[i, :2])), (t, i, tick.tran[i]))
+            span = 2 if (t == drop_tick + 1 and i == 1) else 1
+            v_w = (pos[t, i] - pos[t - span, i]) / (span * dt)
+            c, s = np.cos(yaw[t, i]), np.sin(yaw[t, i])
+            expect = np.array([[c, -s], [s, c]]).T @ v_w
+            errs[i]["yaw" if in_yaw else "cru"].append(np.linalg.norm(tick.tran[i, :2] - expect))
+            if in_yaw:
+                rot_errs.append(abs(float(tick.rotation[i]) - yaw_rates[i] * dt))
+    rmse_c = []
+    for i in range(n):
+        check(len(errs[i]["cru"]) == n_cruise - (i == 1) and len(errs[i]["yaw"]) == n_yaw, errs[i])
+        rmse_c.append(float(np.sqrt(np.mean(np.square(errs[i]["cru"])))))
+        check(rmse_c[i] < 0.18, f"fleet flight stream {i}: cruise rmse {rmse_c[i]}")
+        check(float(np.max(errs[i]["yaw"])) < 0.5, f"fleet flight stream {i}: {errs[i]['yaw']}")
+    check(len(rot_errs) == n * n_yaw, rot_errs)
+    check(float(np.median(rot_errs)) < np.deg2rad(2.0) and float(np.max(rot_errs)) < np.deg2rad(3.5),
+          f"fleet flight rotation errors {rot_errs}")
+    say(f"  (f) fleet flight, 3 streams fused scale/rotation: cruise rmse "
+        f"{[round(r, 4) for r in rmse_c]} m/s, rotation error median "
+        f"{np.rad2deg(np.median(rot_errs)):.3f} deg max {np.rad2deg(np.max(rot_errs)):.3f}, tick "
+        f"p50 {np.percentile(tick_ms[1:], 50):.3f} ms")
+    return {"cruise_rmse_xy": rmse_c, "rot_err_median_deg": float(np.rad2deg(np.median(rot_errs))),
+            "tick_p50_ms": float(np.percentile(tick_ms[1:], 50))}
+
+
+def run_flights(dev) -> dict:
+    """Phase 16.  Returns the ``flights`` line's object."""
+    import tempfile
+
+    from mrs_optic_flow_tpu_torch import native
+    from mrs_optic_flow_tpu_torch.runtime.flightsim import (
+        FlightSimulator,
+        banked_flight_profile,
+        banked_yawing_descent_profile,
+        takeoff_cruise_descent_profile,
+    )
+
+    t_phase = time.perf_counter()
+    fl = Flights(dev)
+    off = {"long_range_mode": "always_off"}
+
+    # (a) the level flight under both policies with a switch
+    level = FlightSimulator(takeoff_cruise_descent_profile())
+    level_frames = fl.render(level, "level height_based")
+    level_twists = {}
+    for mode, n_switches in LEVEL_MODES:
+        label = f"level {mode}"
+        node, pub, rep = fl.fly(level, level_frames, label,
+                                mrs_optic_flow={"long_range_mode": mode, "takeoff_height": 1.2})
+        topics = {t for t, _ in pub if t in ("velocity_out", "velocity_out_longrange")}
+        check(topics == {"velocity_out", "velocity_out_longrange"}, f"{label}: topics {topics}")
+        check(len(rep.mode_switches) == n_switches, f"{label}: switches {rep.mode_switches}")
+        check_level_report(rep, node, label)
+        level_twists[mode] = pub
+    say("[16a flights] the level flight within budget under height_based and takeoff_based")
+
+    # (b) the banked flight: every rate source, the tilt-correction A/B, a 90 deg mount
+    banked = FlightSimulator(banked_flight_profile())
+    banked_frames = fl.render(banked, "banked imu")
+    reps = {}
+    for src in ("imu", "odometry", "odometry_diff"):
+        node, pub, rep = fl.fly(banked, banked_frames, f"banked {src}",
+                                mrs_optic_flow={**off, "ang_rate_source": src})
+        check_banked_report(rep, node, f"banked {src}")
+        reps[src] = (rep, pub)
+    rep_on, pub_on = reps["imu"]
+    _, pub_off, rep_off = fl.fly(banked, banked_frames, "banked tilt_correction off",
+                                 mrs_optic_flow={**off, "tilt_correction": False})
+    check(rep_off.per_phase_rmse["climb"] > 1.6 * rep_on.per_phase_rmse["climb"]
+          and rep_off.rmse_xy > rep_on.rmse_xy, (rep_on.per_phase_rmse, rep_off.per_phase_rmse))
+    check({m.frame_id for t, m in pub_on if t == "velocity_out"} == {"fcu_untilted"}
+          and {m.frame_id for t, m in pub_off if t == "velocity_out"} == {"fcu"}, "frame_ids")
+    _, _, rep_dead = fl.fly(banked, banked_frames, "banked deadband 0.35",
+                            mrs_optic_flow={**off, "minimum_tilt_correction": 0.35})
+    dead_rel = abs(rep_dead.per_phase_rmse["climb"] / rep_off.per_phase_rmse["climb"] - 1.0)
+    check(dead_rel <= 1e-6, f"deadband 0.35 against off: {dead_rel} relative")
+    mounted = FlightSimulator(banked.samples, mount_rpy=(0.0, 0.0, np.pi / 2))
+    mounted_frames = fl.render(mounted, "banked mount yaw pi/2")
+    node, _, rep = fl.fly(mounted, mounted_frames, "banked mount yaw pi/2", c2b=mounted.c2b_quat,
+                          mrs_optic_flow=off)
+    check_banked_report(rep, node, "banked mount yaw pi/2")
+    say(f"[16b flights] banked within budget on imu, odometry, odometry_diff and a 90 deg mount; "
+        f"climb rmse tilt correction on {rep_on.per_phase_rmse['climb']:.4f}, off "
+        f"{rep_off.per_phase_rmse['climb']:.4f} m/s, deadband = off within {dead_rel:.2g}")
+
+    # (c) banked, low, long range all the way, at two mounts
+    lr_samples = banked_flight_profile(climb_frames=24, h0=0.9, h_cruise=1.3, h_final=1.0,
+                                       v_cruise_xy=(0.7, 0.2), descent_frames=16,
+                                       descent_yaw_rate=0.25)
+    for mount_yaw in (0.0, np.pi / 2):
+        label = f"banked long range mount yaw {mount_yaw:.4f}"
+        sim = FlightSimulator(lr_samples, mount_rpy=(0.0, 0.0, mount_yaw))
+        node, pub, rep = fl.fly(sim, fl.render(sim, label), label, c2b=sim.c2b_quat,
+                                mrs_optic_flow={"long_range_mode": "always_on"})
+        check({t for t, _ in pub if t.startswith("velocity_out")}
+              >= {"velocity_out_longrange", "velocity_out_longrange_diff"}, f"{label}: topics")
+        check(rep.rmse_xy < 0.08 and rep.max_err_xy < 0.20, f"{label}: {rep}")
+        check(rep.per_phase_rmse["brake"] < 0.12, f"{label}: {rep.per_phase_rmse}")
+        check(rep.nan_published == 0 and 0.03 < rep.nees_xy < 2.0, f"{label}: {rep}")
+        check(all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), f"{label}: {rep}")
+        check(node.health["consecutive_failures"] <= 1, f"{label}: {node.health}")
+    say("[16c flights] banked long range within budget at both mounts")
+
+    # (d) scale/rotation: the level descent, then the banked tilt gate
+    sr_kw = dict(scale_rotation=True, scale_rot_lp_resolution=240, mrs_optic_flow=off)
+    _, pub, _ = fl.fly(level, level_frames, "level scale/rotation", **sr_kw)
+    descent = [s for s in level.samples if s.phase == "descent"][2:]
+    pairs = sr_pairs(descent, pub, 0)
+    check(len(pairs) >= len(descent) - 2, f"{len(pairs)} decodes for {len(descent)} frames")
+    vz = np.array([m["vz"] for _, m in pairs])
+    vz_true = np.array([s.vel[2] for s, _ in pairs])
+    yaw_rates = np.array([m["yaw_rate"] for _, m in pairs])
+    check(np.all(np.isfinite(vz)) and np.all(np.isfinite(yaw_rates)), "descent decodes finite")
+    vz_err, yr_err = float(np.median(np.abs(vz - vz_true))), float(np.median(np.abs(yaw_rates - 0.35)))
+    check(vz_err < 0.25, f"descent vz median error {vz_err}")
+    mid = vz_true < -0.5
+    check(mid.any() and np.all(vz[mid] < -0.2), f"mid-descent vz {vz[mid]}")
+    check(yr_err < 0.05, f"descent yaw-rate median error {yr_err}")
+    fl.rows["level scale/rotation"].update(vz_median_err=vz_err, yaw_rate_median_err=yr_err)
+
+    gate = FlightSimulator(banked_yawing_descent_profile())
+    samples = gate.samples
+    max_bank = max(np.hypot(s.roll, s.pitch) for s in samples)
+    check(0.15 < max_bank < 0.25, f"max bank {max_bank}")
+    gate_frames = fl.render(gate, "banked tilt gate")
+    _, pub, rep = fl.fly(gate, gate_frames, "banked tilt gate", **sr_kw)
+    pairs = sr_pairs(samples, pub, 3)
+    check(len(pairs) >= len(samples) - 5, "tilt gate: a decode a frame")
+    finite = [(s, m) for s, m in pairs if np.isfinite(m["yaw_rate"])]
+    check(len(finite) <= 3 and all(abs(m["yaw_rate"] - s.yaw_rate) < 1.0 for s, m in finite),
+          f"tilt gate: decodes through the gate {finite}")
+    check(rep.rmse_xy < 0.25 and rep.nan_published == 0, f"tilt gate: {rep}")
+    _, pub_open, _ = fl.fly(gate, gate_frames, "banked tilt gate lifted", scale_rotation=True,
+                            scale_rot_lp_resolution=240, scale_rot_max_tilt=10.0,
+                            scale_rot_max_tilt_rate=1000.0, mrs_optic_flow=off)
+    finite_off = [(s, m) for s, m in sr_pairs(samples, pub_open, 3) if np.isfinite(m["yaw_rate"])]
+    check(len(finite_off) >= len(samples) - 5, "lifted gate: a finite decode a frame")
+    yr = np.array([abs(m["yaw_rate"] - s.yaw_rate) for s, m in finite_off])
+    vz_e = np.array([abs(m["vz"] - s.vel[2]) for s, m in finite_off])
+    check(yr.max() > 5.0 and np.median(vz_e) > 0.2, f"lifted gate: {yr.max()}, {np.median(vz_e)}")
+    tilts = np.array([np.hypot(s.roll, s.pitch) for s, _ in finite_off])
+    rates = np.array([np.hypot(s.roll_rate, s.pitch_rate) for s, _ in finite_off])
+    for t_max in (0.03, 0.05, 0.08, 0.12):
+        for r_max in (0.15, 0.3, 0.5, 1.0):
+            surv = (tilts <= t_max) & (rates <= r_max)
+            check(not surv.any() or np.median(yr[surv]) > 0.15, (t_max, r_max, yr[surv]))
+    broken = yr > 0.15
+    check(np.all((tilts[broken] > 0.05) | (rates[broken] > 0.3)), "tilt gate defaults")
+    say(f"[16d flights] scale/rotation: descent vz median error {vz_err:.4f} m/s, yaw rate "
+        f"{yr_err:.4f} rad/s; the banked tilt gate NaNs all but {len(finite)} decodes, lifted its "
+        f"worst yaw-rate error is {yr.max():.2f} rad/s")
+
+    # (e)-(g) write their recordings into a directory removed at the end
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        rec_dir = pathlib.Path(tmp)
+        # (e) .ofrec record and replay, host preprocessing, store_video
+        rec_path = str(rec_dir / "level.ofrec")
+        level.record_ofrec(rec_path, level_frames)
+        with native.Replay(rec_path) as rp:
+            check(rp.n_frames == len(level.samples), f"{rp.n_frames} frames replayed")
+            replayed = [f for _, f in rp]
+            for i, (stamp, frame) in enumerate(rp):
+                check(stamp == level.samples[i].t, f"frame {i}: stamp {stamp}")
+                check(np.array_equal(frame, np.clip(np.rint(level_frames[i]), 0, 255).astype(np.uint8)),
+                      f"frame {i} differs from its render")
+        _, pub, rep = fl.fly(level, level_frames, "level replayed .ofrec", stream_frames=replayed,
+                             mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
+        check(rep.rmse_xy < 0.15 and rep.nan_published == 0, f"replayed flight: {rep}")
+
+        bgr = [np.repeat(f[..., None], 3, axis=-1) for f in replayed]
+        _, pub, _ = fl.fly(level, level_frames, "level host_preprocess", stream_frames=bgr,
+                           tpu={"host_preprocess": True},
+                           mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
+        crops = fl.rows["level host_preprocess"]["gray_crops"]  # every frame after the first
+        check(crops == len(level.samples) - 1, f"gray_crop ran {crops} times for "
+                                               f"{len(level.samples) - 1} frames")
+        host_diff = twist_diff(pub, level_twists["height_based"])
+        check(host_diff <= HOST_PRE_TWIST_TOL, f"host preprocessing moved a twist by {host_diff} m/s")
+
+        videos = {}
+        for ext in ("ofrec", "avi"):
+            path = str(rec_dir / f"overlay.{ext}")
+            fl.fly(level, level_frames, f"level store_video .{ext}", store_video=True, video_path=path,
+                   mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
+            videos[ext] = path
+        with native.Replay(videos["ofrec"]) as rp:
+            overlay_stamps, overlays = zip(*list(rp))
+        check(len(overlays) == len(level.samples) - 1 and overlays[0].shape == (480, 480),
+              f"{len(overlays)} overlay frames of {overlays[0].shape}")
+        check(list(overlay_stamps) == [s.t for s in level.samples[1:]], "overlay stamps")
+        w, h, avi = read_avi(videos["avi"])
+        check((w, h) == (480, 480) and len(avi) == len(overlays), f"AVI {w}x{h}, {len(avi)} frames")
+        check(all(np.array_equal(a[..., 0], o) and np.array_equal(a[..., 2], o)
+                  for a, o in zip(avi, overlays)), "the AVI's frames differ from the .ofrec overlays")
+        say(f"[16e flights] .ofrec replay bit-exact, replayed rmse_xy {rep.rmse_xy:.4f}; host "
+            f"preprocessing: gray_crop on all {crops} frames, twists within {host_diff:.3g} m/s of "
+            f"(a); store_video: {len(overlays)} overlays in .ofrec and .avi, equal")
+
+        # (f) the fleet flight, (g) the CLI
+        fleet = run_fleet_flight(dev, fl.totals)
+        say("[16f flights] the fleet flight within budget")
+        cli = run_cli(dev, rec_path)
+        say("[16g flights] the CLI's flight gate, synthetic and replay runs exit as wanted")
+    wall = time.perf_counter() - t_phase
+    say(f"[16 flights] {wall:.1f} s")
+    return {"flights": fl.rows, "launches": fl.totals, "fleet_flight": fleet, "cli": cli,
+            "host_preprocess_gray_crops": crops, "host_preprocess_twist_diff": host_diff,
+            "wall_s": wall}
+
+
+def twist_diff(pub_a, pub_b) -> float:
+    """Largest difference [m/s] between two runs' twists, topic by topic and
+    stamp by stamp (x and y; both runs must publish the same stamps)."""
+    worst = 0.0
+    for topic in ("velocity_out", "velocity_out_longrange"):
+        a = {m.stamp: m.linear[:2] for t, m in pub_a if t == topic}
+        b = {m.stamp: m.linear[:2] for t, m in pub_b if t == topic}
+        check(a.keys() == b.keys(), f"{topic}: stamps differ")
+        for k in a:
+            worst = max(worst, float(np.abs(np.subtract(a[k], b[k])).max()))
+    return worst
+
+
 def main() -> int:
     import argparse
 
@@ -2352,6 +2855,7 @@ def main() -> int:
     check_sad_large(dev)
     check_tf32(dev)
     serving = run_serving(dev)
+    flights = run_flights(dev)
 
     # each kernel at the shape its row times: (launches, error, ms through
     # the wrapper, own ms, plain ms, library ms or None, library own ms or
@@ -2374,12 +2878,14 @@ def main() -> int:
                                   (e120["bound_ms"], e120["bound_by"])),
     }
     say(json.dumps({"serving": {"card": smi, **serving}}))
+    say(json.dumps({"flights": {"card": smi, **flights}}))
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": KERNELS[name][0],
         "replaces": KERNELS[name][1],
         "launches": launches,
+        "flight_launches": flights["launches"][name],
         "max_abs_err": err,
         "ms": ms,
         "own_ms": own,

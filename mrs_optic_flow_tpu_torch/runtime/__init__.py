@@ -1,7 +1,10 @@
-"""Runtime: messages, profiler, the OpticFlowNode, and the serving layer
+"""Runtime: messages, profiler, the OpticFlowNode, the serving layer
 (:mod:`.serving` ServingLoop, :mod:`.fleet` FleetServer, :mod:`.fleet_feeder`
-FleetFeeder).  The names mirror the JAX package's ``runtime``; its bridges,
-bags and stream harness are not ported."""
+FleetFeeder), the stream harness (:mod:`.stream` FrameStream and
+SyntheticScene), the flight simulator (:mod:`.flightsim`), the node's
+native feeder (:mod:`.feeder`) and the overlay renderer (:mod:`.viz`).  The
+names mirror the JAX package's ``runtime``; its ROS bridges and bags are not
+ported (ROADMAP queue 1 item 9)."""
 
 from mrs_optic_flow_tpu_torch.runtime.msgs import (  # noqa: F401
     CameraInfo,
@@ -18,3 +21,4 @@ from mrs_optic_flow_tpu_torch.runtime.serving import (  # noqa: F401
     ServingRequest,
     ServingResult,
 )
+from mrs_optic_flow_tpu_torch.runtime.stream import FrameStream, SyntheticScene  # noqa: F401

@@ -20,8 +20,12 @@ estimator (kernel B) runs in the same function on the same full-resolution
 gray frame.  The frame and one packed parameter vector go up, and one
 ``summary`` tensor comes back: one readback per frame, as in the JAX node.
 
-The constructor raises ``NotImplementedError`` for host preprocessing, the
-GUI and video recording; ROADMAP.md lists them.
+Options of the JAX node: ``tpu.host_preprocess`` runs the native fused
+grayscale and crop on the host and uploads the ``frame_size``² window
+(:meth:`_maybe_host_preprocess`); ``store_video`` records the flow overlay
+to ``video_path`` (``.ofrec`` through the native Recorder, else an AVI at
+``video_fps``) and ``gui`` shows it with OpenCV, which disables itself with
+one log line where OpenCV or a display is missing (:meth:`_record_overlay`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from mrs_optic_flow_tpu_torch import native
 from mrs_optic_flow_tpu_torch.config import NodeConfig
 from mrs_optic_flow_tpu_torch.convert import node_state_from_numpy
 from mrs_optic_flow_tpu_torch.filters.allsac import allsac_mean, point_mean, ransac_mean
@@ -63,6 +68,7 @@ from mrs_optic_flow_tpu_torch.runtime.msgs import (
     TwistWithCovarianceStamped,
 )
 from mrs_optic_flow_tpu_torch.runtime.profiler import Profiler, ThrottledLog
+from mrs_optic_flow_tpu_torch.runtime.viz import VideoWriter, flow_overlay
 from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from mrs_optic_flow_tpu_torch.utils.quat_np import (
     np_quat_from_rpy,
@@ -70,17 +76,6 @@ from mrs_optic_flow_tpu_torch.utils.quat_np import (
     np_quat_multiply,
     np_rpy_from_quat,
 )
-
-
-def _check_supported(c: NodeConfig) -> None:
-    """Reject configurations outside the ported path, naming the ROADMAP item."""
-    unsupported = [
-        (c.host_preprocess, "host_preprocess", "queue 1 item 6"),
-        (c.gui or c.store_video, "gui / store_video", "queue 1 item 6"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class OpticFlowNode:
@@ -106,7 +101,6 @@ class OpticFlowNode:
         ``timerTf``, ``src/optic_flow.cpp:1165-1243``)."""
         self.config = config or NodeConfig()
         c = self.config
-        _check_supported(c)
         self.device = resolve_device(device)
         self.publish = publish or (lambda topic, msg: None)
         self.log = log
@@ -190,6 +184,15 @@ class OpticFlowNode:
         self._consecutive_failures = 0
         #: rolling (flow, odometry) speed samples over analyze_duration
         self._speed_history: list = []
+        #: tpu.host_preprocess's native binding, resolved at the first frame
+        #: (None: not yet, False: unavailable, else the module)
+        self._host_pre = None
+        #: store_video's sink (None: not yet opened or unavailable)
+        self._recorder = None
+        self._recorder_opened = False
+        self._gui_failed = False
+        #: set by :meth:`warmup`: its zero frames are not recorded or shown
+        self._warming = False
 
     # ------------------------------------------------------------------ #
     # callbacks                                                           #
@@ -393,6 +396,106 @@ class OpticFlowNode:
             g = resize_by(g, c.scale_factor)
         return center_crop(g, c.frame_size, cx_eff)
 
+    def _maybe_host_preprocess(self, img: np.ndarray, channels: int, cx_eff: int):
+        """``tpu.host_preprocess``: the native fused uint8 grayscale and crop
+        (``native.gray_crop``, or ``native.crop`` of a gray frame) on the
+        host, so the upload is the ``frame_size``² gray window instead of
+        the whole frame (4.7x fewer bytes at 752x480x3 -> 480²; the
+        reference preprocesses on the host too, ``src/optic_flow.cpp:
+        1602-1622``).  The crop corner is the device path's
+        (``ops/preprocess.py::center_crop``) and the gray weights OpenCV's
+        fixed-point ones, at most 1 uint8 LSB from the device's float mix.
+        Inputs the native path cannot honour (not uint8, ``scale_factor !=
+        1``, a crop that touches the image edge) and an unavailable native
+        library fall back to device preprocessing with a throttled log."""
+        c = self.config
+        if self._host_pre is None:  # resolve the native binding once
+            try:
+                native.load()
+                self._host_pre = native
+            except Exception as e:  # noqa: BLE001 — build and load can fail many ways
+                self._host_pre = False
+                self.log(f"[OpticFlow]: host_preprocess unavailable "
+                         f"({type(e).__name__}: {e}); preprocessing on device")
+        if self._host_pre is False:
+            return img, channels
+        fs = c.frame_size
+        h, w = int(img.shape[0]), int(img.shape[1])
+        if channels == 1 and (h, w) == (fs, fs):
+            return img, channels  # already the cropped gray window
+        xi, yi = cx_eff - fs // 2, h // 2 - fs // 2
+        eligible = (
+            channels in (1, 3) and img.dtype == np.uint8 and abs(c.scale_factor - 1.0) <= 0.01
+            and 0 <= xi and xi + fs <= w and 0 <= yi and yi + fs <= h
+        )
+        if not eligible:
+            self.log_throttled(
+                "hostpre",
+                "[OpticFlow]: host_preprocess cannot honor this input "
+                "(format/scale_factor/edge crop); preprocessing on device",
+            )
+            return img, channels
+        if channels == 3:
+            return self._host_pre.gray_crop(img, cx_eff, h // 2, fs), 1
+        return self._host_pre.crop(img, cx_eff, h // 2, fs), 1
+
+    def _record_overlay(self, stamp: float, gray: torch.Tensor, flow, scale: float = 1.0):
+        """``gui`` and ``store_video``, one overlay render for both
+        (``runtime/viz.py::flow_overlay`` of the gray window and the gated
+        shifts, ``scale`` converting them to full-resolution pixels).
+
+        ``store_video`` (``src/FftMethod.cpp:1695-1704``, ``:1895-1897``):
+        a ``.ofrec`` ``video_path`` records a timestamped native-Recorder
+        stream, any other path an AVI at ``video_fps`` (``viz.VideoWriter``,
+        grayscale like the reference's ``isColor=false``).  ``gui``
+        (``src/FftMethod.cpp:1886-1892``): ``cv2.imshow`` of the overlay,
+        disabled with one log line at the first failure (no OpenCV or no
+        display)."""
+        c = self.config
+        overlay = None
+
+        def render():
+            return flow_overlay(gray.cpu().numpy(), flow.shifts.cpu().numpy(),
+                                c.sample_point_size, scale=scale)
+
+        if c.gui and not self._gui_failed:
+            overlay = render()
+            try:
+                import cv2  # noqa: PLC0415
+
+                cv2.imshow("optic_flow", overlay)
+                cv2.waitKey(1)
+            except Exception as e:  # noqa: BLE001 — no OpenCV or no display
+                self.log(f"[OpticFlow]: gui disabled: {e}")
+                self._gui_failed = True
+        if not c.store_video:
+            return
+        if not self._recorder_opened:
+            self._recorder_opened = True
+            try:
+                if c.video_path.endswith(".ofrec"):
+                    self._recorder = native.Recorder(c.video_path, width=c.frame_size,
+                                                     height=c.frame_size)
+                else:
+                    self._recorder = VideoWriter(c.video_path, width=c.frame_size,
+                                                 height=c.frame_size, fps=c.video_fps)
+            except Exception as e:  # noqa: BLE001 — no toolchain or an unwritable path
+                self.log(f"[OpticFlow]: could not open video recorder: {e}")
+                self._recorder = None
+        if self._recorder is not None:
+            overlay = render() if overlay is None else overlay
+            if isinstance(self._recorder, VideoWriter):
+                self._recorder.write(overlay)  # AVI frames carry no stamp
+            else:
+                self._recorder.write(stamp, overlay)
+
+    def close(self):
+        """Release the video sink (an AVI's index is written here; the file
+        is valid after every frame regardless)."""
+        if self._recorder is not None:
+            self._recorder.close()
+        self._recorder = None
+
     def _sr_step(self, gray: torch.Tensor):
         """Step the scale/rotation estimator on the frame's gray window:
         ``(new state, summary slots [scale, rot])``, or ``(None, [])``
@@ -408,10 +511,10 @@ class OpticFlowNode:
         getRT -> detilt and body-frame rotation.  ``params`` packs
         ``[height, dt, K (9), dist (5), c2b (4), rate_quat (4), detilt (4),
         height_lr, roll_rate, pitch_rate, cam_yaw]``.
-        Returns the new flow and scale/rotation states and the ``summary``
+        Returns the new flow and scale/rotation states, the ``summary``
         vector ``[ok, tran_b (3), ang (3), n_inliers, ang_diff_rejected]``,
         then ``[scale, rot]`` with scale/rotation, then the raw shifts with
-        ``raw_output``."""
+        ``raw_output``, and the engine's ``FlowResult``."""
         c = self.config
         height, dt = params[0], params[1]
         cam = params[2:11].reshape(3, 3)
@@ -440,7 +543,7 @@ class OpticFlowNode:
         ]
         if c.raw_output:
             parts.append(flow.shifts_raw.reshape(-1))
-        return flow_state, sr_state, torch.cat(parts)
+        return flow_state, sr_state, torch.cat(parts), flow
 
     def _frame_step_lr(self, gray: torch.Tensor, params: torch.Tensor):
         """The long-range device chain (the JAX node's ``_frame_program_lr``,
@@ -451,7 +554,8 @@ class OpticFlowNode:
         :meth:`_frame_step`; no random draws.  Returns the new states and the
         summary ``[ok, tran_b (3), diff_b (3)]``, then ``[scale, rot]`` with
         scale/rotation (on the full-resolution gray, like the reference's
-        ``imCurr_`` feed), then the long-range shifts with ``raw_output``."""
+        ``imCurr_`` feed), then the long-range shifts with ``raw_output``, and
+        the engine's ``FlowResult``."""
         c = self.config
         dt, cam, c2b = params[1], params[2:11].reshape(3, 3), params[16:20]
         height_lr, roll_rate, pitch_rate, cam_yaw = params[28:32]
@@ -467,7 +571,7 @@ class OpticFlowNode:
         ]
         if c.raw_output:
             parts.append(flow.shifts_raw.reshape(-1))
-        return flow_state, sr_state, torch.cat(parts)
+        return flow_state, sr_state, torch.cat(parts), flow
 
     def _frame_step_simple(self, gray: torch.Tensor, params: torch.Tensor):
         """The methods-3/5 device chain (the JAX node's
@@ -475,9 +579,9 @@ class OpticFlowNode:
         velocities ``v = -d * h / f / dt`` -> consensus by ``filter_method``
         (allsac, ransac or average, ``src/utilityFunctions.cpp:58-216``) ->
         body-frame rotation.  Same ``params`` as :meth:`_frame_step`.
-        Returns the new states and the summary ``[ok, tran_b (3)]``, then
+        Returns the new states, the summary ``[ok, tran_b (3)]``, then
         ``[scale, rot]`` with scale/rotation, then the per-cell shifts with
-        ``raw_output``."""
+        ``raw_output``, and the engine's ``FlowResult``."""
         c = self.config
         height, dt = params[0], params[1]
         cam = params[2:11].reshape(3, 3)
@@ -504,7 +608,7 @@ class OpticFlowNode:
         parts = [ok.to(torch.float32)[None], tran_b, *sr_parts]
         if c.raw_output:
             parts.append(cells.reshape(-1))
-        return flow_state, sr_state, torch.cat(parts)
+        return flow_state, sr_state, torch.cat(parts), flow
 
     def _process_image(
         self, msg: ImageMsg, long_range: Optional[bool] = None
@@ -534,6 +638,8 @@ class OpticFlowNode:
         else:
             cx_eff = int(cx)
             cam_eff = self.camera_matrix
+        if c.host_preprocess:
+            img, channels = self._maybe_host_preprocess(img, channels, cx_eff)
 
         # detilt (src/optic_flow.cpp:1702); tilt_correction and its deadband
         # are live here (ARCHITECTURE.md deviation list)
@@ -567,7 +673,7 @@ class OpticFlowNode:
                 states = self._frame_step_lr(gray, params_dev)
             else:
                 states = self._frame_step(gray, params_dev, cx_eff)
-            self.flow_state, self.scale_rot_state, summary_dev = states
+            self.flow_state, self.scale_rot_state, summary_dev, flow = states
         # ONE readback: [ok, tran_b (3)(, ang (3), n_inliers,
         # ang_diff_rejected | , diff_b (3))(, scale, rot)(, raw shifts)]
         summary = summary_dev.cpu().numpy()
@@ -576,6 +682,11 @@ class OpticFlowNode:
         # the raw shifts first, then scale/rotation, as the JAX node publishes
         if c.raw_output:
             self.publish("points_raw_out", summary[k + 2 * sr:].reshape(-1, 2))
+        if (c.store_video or c.gui) and not self._warming:
+            # long-range shifts are measured on the downsampled frames:
+            # scaled to full-resolution pixels for the overlay
+            self._record_overlay(msg.stamp, gray, flow,
+                                 scale=float(c.long_range_ratio) if long_range else 1.0)
         if sr:
             # published regardless of the flow gate: the estimators are
             # independent (src/optic_flow.cpp:1629-1650)
@@ -731,6 +842,8 @@ class OpticFlowNode:
         )
         pub = self.publish
         self.publish = lambda *a: None
+        # the zero frames reach neither the recording nor the GUI
+        self._warming = True
         try:
             self.got_height = self.got_odometry = self.got_imu = self.got_tfs = True
             self.first_image = False
@@ -744,6 +857,7 @@ class OpticFlowNode:
                                         long_range=long_range)
         finally:
             self.publish = pub
+            self._warming = False
             (
                 self.flow_state, self.scale_rot_state, self.first_image, self._begin, self.dt,
                 self.got_height, self.got_odometry, self.got_imu, self.got_tfs,

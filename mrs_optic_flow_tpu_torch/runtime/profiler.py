@@ -1,6 +1,8 @@
-"""Per-stage wall-time statistics and throttled logging — the parts of
-:mod:`mrs_optic_flow_tpu.runtime.profiler` the node uses (the
-``mrs_lib::Profiler`` + ``Routine`` and ``ROS_*_THROTTLE`` idioms).
+"""Per-stage wall-time statistics and throttled logging — the port's copy
+of :mod:`mrs_optic_flow_tpu.runtime.profiler` (the ``mrs_lib::Profiler`` +
+``Routine`` and ``ROS_*_THROTTLE`` idioms): routine statistics and the text
+report.  The JAX profiler's event log and device-trace hooks are not ported
+(ROADMAP queue 1 item 8).
 
 A routine times the host side of a stage with ``time.perf_counter``; device
 work that the stage only enqueues is not waited for.
@@ -45,6 +47,16 @@ class Profiler:
                 "max_s": s[-1],
             }
         return out
+
+    def report(self) -> str:
+        lines = [f"[{self.name}] profiler report"]
+        for k, st in sorted(self.stats().items()):
+            lines.append(
+                f"  {k:28s} n={st['count']:<6d} mean={st['mean_s']*1e3:8.3f}ms "
+                f"p50={st['p50_s']*1e3:8.3f}ms p95={st['p95_s']*1e3:8.3f}ms "
+                f"max={st['max_s']*1e3:8.3f}ms"
+            )
+        return "\n".join(lines)
 
 
 class ThrottledLog:

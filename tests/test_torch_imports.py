@@ -16,12 +16,27 @@ from mrs_optic_flow_tpu.config import load_config
 from mrs_optic_flow_tpu.ops import phase_correlate as jax_pc
 from mrs_optic_flow_tpu.runtime import msgs as jax_msgs
 from mrs_optic_flow_tpu_torch.config import NodeConfig
+from mrs_optic_flow_tpu_torch.config import load_config as port_load_config
 from mrs_optic_flow_tpu_torch.ops import cuda_kernels
 from mrs_optic_flow_tpu_torch.ops import phase_correlate as torch_pc
 from mrs_optic_flow_tpu_torch.runtime import msgs as torch_msgs
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "mrs_optic_flow_tpu_torch"
+
+
+#: the port's modules the tests import one by one with jax, yaml and cv2 blocked
+PORT_MODULES = [
+    "mrs_optic_flow_tpu_torch.runtime.node",
+    "mrs_optic_flow_tpu_torch.config",
+    "mrs_optic_flow_tpu_torch.native",
+    "mrs_optic_flow_tpu_torch.runtime.profiler",
+    "mrs_optic_flow_tpu_torch.runtime.viz",
+    "mrs_optic_flow_tpu_torch.runtime.stream",
+    "mrs_optic_flow_tpu_torch.runtime.flightsim",
+    "mrs_optic_flow_tpu_torch.runtime.feeder",
+    "mrs_optic_flow_tpu_torch.__main__",
+]
 
 
 def test_port_imports_without_jax_yaml_cv2():
@@ -33,6 +48,37 @@ def test_port_imports_without_jax_yaml_cv2():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_new_modules_import_without_jax_yaml_cv2():
+    """Every module of the offline entry points, ``__main__`` included,
+    imports with jax, yaml and cv2 blocked and pulls in nothing of them or
+    of the JAX package; the YAML loader reads ``configs/default.yaml``."""
+    code = (
+        "import sys, importlib; sys.modules.update(jax=None, yaml=None, cv2=None)\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "from mrs_optic_flow_tpu_torch.config import load_config; load_config()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'yaml', 'cv2', 'mrs_optic_flow_tpu') and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_help_without_jax_yaml_cv2():
+    code = (
+        "import sys, runpy; sys.modules.update(jax=None, yaml=None, cv2=None); "
+        "sys.argv = ['mrs_optic_flow_tpu_torch', '--help']; "
+        "runpy.run_module('mrs_optic_flow_tpu_torch', run_name='__main__')"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "--flight" in proc.stdout and "--device" in proc.stdout
 
 
 #: an import of jax or of the JAX package (``mrs_optic_flow_tpu``, not the port)
@@ -110,6 +156,7 @@ def test_msgs_fields_match_jax(name):
 
 def test_node_config_defaults_match_yaml():
     assert NodeConfig() == NodeConfig.from_optic_flow_config(load_config())
+    assert NodeConfig() == port_load_config()
 
 
 def test_node_config_copies_overrides():
