@@ -150,15 +150,28 @@ Phases, each printing a line when it finishes:
     the first, twists equal to (a)'s within 1e-6 m/s) and with
     ``store_video`` to ``.ofrec`` and ``.avi`` (read back, the same overlays);
     (f) ``test_fleet_flight_closed_loop``'s three streams through one
-    ``FleetServer`` with scale/rotation fused; (g) ``python -m
-    mrs_optic_flow_tpu_torch`` as four subprocesses started together:
-    ``--flight banked`` exits 0 with the report as its last line, ``--flight
-    level --flight-rmse-budget 0.001`` exits 1, ``--synthetic`` with
-    ``tpu.host_preprocess=true`` and ``--replay`` of (e)'s file exit 0.
-    Every flight sets the counts to 0 just before its frames: kernel A once
-    a frame after the first, kernel B too with scale/rotation (none
-    without), both once a fleet tick after the first; each prints its RMSE, the node's p50
-    and p90 latency and its render and node wall times.
+    ``FleetServer`` with scale/rotation fused; (h) (a)'s renders written by
+    ``record_bag`` and ``record_bag2`` and replayed through ``replay_bag``
+    and ``replay_bag2`` under ``height_based`` (every frame replayed, 2
+    switches, RMSE, coverage, no NaN twist, the two formats' twists within
+    1e-6 m/s); (i) the banked flight through both formats
+    (``test_flight_banked_bag_roundtrips``' budgets); (j) the banked scene
+    variants (lens distortion, principal point 420, 230) at the nominal
+    banked budgets; (l) ``RosBridge`` and ``Ros2Bridge`` on fakes of
+    ``rospy`` and ``rclpy`` defined here, fed (h)'s ROS1 bag: twists equal
+    to (h)'s replay within 1e-6 m/s, every message of its builder's type;
+    (g) and (k) ``python -m mrs_optic_flow_tpu_torch`` as eight
+    subprocesses started together: ``--flight banked`` exits 0 with the
+    report as its last line, ``--flight level --flight-rmse-budget 0.001``
+    exits 1, ``--synthetic`` with ``tpu.host_preprocess=true`` and
+    ``--replay`` of (e)'s file exit 0, ``--bag-info`` of both bags lists
+    every topic with its count and ``--replay`` of both prints a twist line
+    for each twist it counts.  Every flight sets the counts to 0 just
+    before its frames: kernel A once a frame after the first, kernel B too
+    with scale/rotation (none without), both once a fleet tick after the
+    first; each prints its RMSE, the node's p50 and p90 latency and its
+    render and node wall times, a bag flight also the bag's write and read
+    seconds.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
@@ -2367,24 +2380,42 @@ class Flights:
         the first, kernel B on every one too with scale/rotation.  Returns
         (node, published, report).  The row also counts ``native.gray_crop``
         calls over the frames (host preprocessing)."""
-        from mrs_optic_flow_tpu_torch import native
+        from mrs_optic_flow_tpu_torch.runtime import FrameStream
+
+        node, published = self.node(sim, c2b, **overrides)
+        stream = FrameStream(node)
+        sim.events_into(stream, frames if stream_frames is None else stream_frames)
+        rep = self.measure(sim, label, node, published, stream.run)
+        return node, published, rep
+
+    def node(self, sim, c2b=(0.0, 0.0, 0.0, 1.0), **overrides):
+        """A node on ``dev`` from ``load_config(overrides=...)``, its
+        transforms set, warmed up on the flight's camera; (node, the list
+        its publications go to)."""
         from mrs_optic_flow_tpu_torch.config import load_config
-        from mrs_optic_flow_tpu_torch.runtime import FrameStream, OpticFlowNode
-        from mrs_optic_flow_tpu_torch.runtime.flightsim import evaluate_flight
+        from mrs_optic_flow_tpu_torch.runtime import OpticFlowNode
 
         published = []
-        cfg = load_config(overrides=overrides)
-        node = OpticFlowNode(cfg, device=self.dev, publish=lambda t, m: published.append((t, m)),
-                             log=lambda s: None)
+        node = OpticFlowNode(load_config(overrides=overrides), device=self.dev,
+                             publish=lambda t, m: published.append((t, m)), log=lambda s: None)
         node.set_transforms(c2b)
         node.on_camera_info(sim.scene.camera_info())
         node.warmup()
-        stream = FrameStream(node)
-        sim.events_into(stream, frames if stream_frames is None else stream_frames)
+        return node, published
+
+    def measure(self, sim, label: str, node, published, run):
+        """``run()`` feeds ``node`` the flight.  Every kernel's count is set to
+        0 just before and read just after: kernel A on every frame after the
+        first, kernel B on every one too with scale/rotation.  Returns the
+        report; the row also counts ``native.gray_crop`` calls (host
+        preprocessing)."""
+        from mrs_optic_flow_tpu_torch import native
+        from mrs_optic_flow_tpu_torch.runtime.flightsim import evaluate_flight
+
         wrappers = reset_launches()
         native.gray_crop.CALLS = 0
         t0 = time.perf_counter()
-        stream.run()
+        run()
         wall = time.perf_counter() - t0
         gray_crops = native.gray_crop.CALLS
         launches = {name: fn.LAUNCHES for name, fn in wrappers.items()}
@@ -2397,7 +2428,7 @@ class Flights:
             check(launches["phase_correlate_frames"] == processed,
                   f"{label}: kernel A launched {launches['phase_correlate_frames']} times "
                   f"for {processed} frames")
-            want_b = processed if cfg.scale_rotation else 0
+            want_b = processed if node.config.scale_rotation else 0
             check(launches["peak_refine_raw"] == want_b,
                   f"{label}: kernel B launched {launches['peak_refine_raw']} times, {want_b} wanted")
         lat = np.array([m for t, m in published if t == "processing_latency_out"][1:]) * 1e3
@@ -2410,6 +2441,33 @@ class Flights:
             f"{rep.nees_xy:.4f}, latency p50 {row['p50_ms']:.3f} ms p90 {row['p90_ms']:.3f} ms, "
             f"render {row.get('render_s', 0.0):.2f} s, node {wall:.2f} s; launches A "
             f"{row['launches_a']}, B {row['launches_b']}")
+        return rep
+
+    def fly_bag(self, sim, frames, path: str, fmt: str, label: str, **overrides):
+        """The flight written by ``record_bag`` (``fmt`` "bag") or
+        ``record_bag2`` ("bag2") to ``path`` from ``frames``, its messages read
+        once, then replayed through ``replay_bag``/``replay_bag2`` into a
+        warmed node (identity camera mount).  The row adds the write and
+        read seconds.  Returns (node, published, report)."""
+        from mrs_optic_flow_tpu_torch.runtime.rosbag import BagReader, replay_bag
+        from mrs_optic_flow_tpu_torch.runtime.rosbag2 import Bag2Reader, replay_bag2
+
+        record, reader, replay = ((sim.record_bag, BagReader, replay_bag) if fmt == "bag"
+                                  else (sim.record_bag2, Bag2Reader, replay_bag2))
+        t0 = time.perf_counter()
+        record(path, frames)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with reader(path) as r:
+            n_msgs = sum(1 for _ in r.messages())
+        read_s = time.perf_counter() - t0
+        check(n_msgs == 1 + 4 * len(sim.samples), f"{label}: {n_msgs} messages in the bag")
+        node, published = self.node(sim, **overrides)
+        replayed = []
+        rep = self.measure(sim, label, node, published,
+                           lambda: replayed.append(replay(node, path)))
+        check(replayed == [len(sim.samples)], f"{label}: replay reports {replayed} frames")
+        self.rows[label].update(write_s=write_s, read_s=read_s, messages=n_msgs)
         return node, published, rep
 
 
@@ -2461,9 +2519,10 @@ def read_avi(path: str) -> tuple:
     return w, h, np.stack(frames)
 
 
-def run_cli(dev, replay_path: str) -> dict:
-    """Phase 16(g): the CLI as subprocesses, all started together, each
-    with its own time limit; every one is stopped before this returns."""
+def run_cli(dev, replay_path: str, bags: dict) -> dict:
+    """Phase 16(g) and (k): the CLI as subprocesses, all started together,
+    each with its own time limit; every one is stopped before this returns.
+    ``bags``: format ("bag", "bag2") -> (path, frames in it)."""
     runs = {
         "flight banked": (["--flight", "banked", "--quiet"], 0),
         "flight level, budget 0.001": (["--flight", "level", "--quiet",
@@ -2472,6 +2531,9 @@ def run_cli(dev, replay_path: str) -> dict:
                                         "tpu.host_preprocess=true"], 0),
         "replay .ofrec": (["--replay", replay_path, "--quiet"], 0),
     }
+    for fmt, (path, _) in bags.items():
+        runs[f"bag-info {fmt}"] = (["--bag-info", path], 0)
+        runs[f"replay {fmt}"] = (["--replay", path, "--quiet"], 0)
     procs = {}
     try:
         for label, (argv, _) in runs.items():
@@ -2485,7 +2547,8 @@ def run_cli(dev, replay_path: str) -> dict:
             want = runs[label][1]
             check(proc.returncode == want, f"CLI {label}: exit {proc.returncode}, {want} wanted; "
                                            f"stderr {stderr[-2000:]}")
-            out[label] = {"rc": proc.returncode, "last_line": stdout.strip().splitlines()[-1]}
+            out[label] = {"rc": proc.returncode, "stdout": stdout,
+                          "last_line": stdout.strip().splitlines()[-1]}
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -2503,7 +2566,235 @@ def run_cli(dev, replay_path: str) -> dict:
     say(f"  CLI: banked exit 0, rmse_xy {banked['rmse_xy']:.4f}; level with budget 0.001 exit 1 "
         f"(rmse_xy {level['rmse_xy']:.4f}); {out['synthetic, host_preprocess']['last_line']}; "
         f"{out['replay .ofrec']['last_line']}")
-    return {"banked_rmse_xy": banked["rmse_xy"], "level_rmse_xy": level["rmse_xy"]}
+    say("[16g flights] the CLI's flight gate, synthetic and replay runs exit as wanted")
+    # (k) the bags: --bag-info lists every topic with its count, --replay
+    # dispatches every frame; each twist line counted
+    bag_rows = {}
+    for fmt, (path, n_frames) in bags.items():
+        info = out[f"bag-info {fmt}"]["stdout"].strip().splitlines()
+        check(info[0].startswith(f"{path}: {1 + 4 * n_frames} messages, ") and len(info) == 6,
+              f"CLI --bag-info {fmt}: {info}")
+        counts = {line.split()[0]: int(line.split()[1]) for line in info[1:]}
+        check(counts == {"/camera_info": 1, "/height": n_frames, "/image_raw": n_frames,
+                         "/imu": n_frames, "/odometry": n_frames}, f"CLI --bag-info {fmt}: {counts}")
+        lines = out[f"replay {fmt}"]["stdout"].strip().splitlines()
+        twist_lines = sum(1 for line in lines if " m/s" in line and line.startswith("["))
+        summary = lines[-1].split("; health")[0]
+        check(summary == f"{twist_lines} twists from {n_frames} replay frames"
+              and twist_lines >= n_frames - 1, f"CLI --replay {fmt}: {summary}, {twist_lines} lines")
+        bag_rows[fmt] = {"messages": 1 + 4 * n_frames, "twists": twist_lines, "summary": summary}
+    check(bag_rows["bag"]["twists"] == bag_rows["bag2"]["twists"], f"CLI bag replays {bag_rows}")
+    say(f"[16k flights] CLI --bag-info and --replay of both bags: {bag_rows['bag']['summary']} "
+        f"(.bag), {bag_rows['bag2']['summary']} (rosbag2)")
+    return {"banked_rmse_xy": banked["rmse_xy"], "level_rmse_xy": level["rmse_xy"], "bags": bag_rows}
+
+
+class FakeEndpoint:
+    """A publisher or subscription of the fake ``rospy``/``rclpy``: its topic,
+    message class, callback and the messages published on it."""
+
+    def __init__(self, registry: list, topic: str, typ, cb=None):
+        self.topic, self.type, self.cb, self.sent = topic, typ, cb, []
+        registry.append(self)
+
+    def publish(self, msg) -> None:
+        self.sent.append(msg)
+
+
+class FakeTime:
+    """``rospy.Time``: seconds as a float."""
+
+    def __init__(self, sec: float):
+        self.sec = sec
+
+    @staticmethod
+    def from_sec(sec: float) -> "FakeTime":
+        return FakeTime(sec)
+
+    def to_sec(self) -> float:
+        return self.sec
+
+
+class FakeTfBuffer:
+    """A tf2 buffer holding the identity between every pair of frames."""
+
+    def lookup_transform(self, target, source, time_, timeout=None):
+        from types import SimpleNamespace
+
+        return SimpleNamespace(transform=SimpleNamespace(rotation=SimpleNamespace(
+            x=0.0, y=0.0, z=0.0, w=1.0)))
+
+
+def fake_msg_types() -> dict:
+    """Type key -> a message class with the fields the bridges' builders
+    fill (outputs) or a bare class (inputs, which the bridge only names)."""
+    from types import SimpleNamespace
+
+    def vec():
+        return SimpleNamespace(x=0.0, y=0.0, z=0.0)
+
+    class TwistWithCovarianceStamped:
+        def __init__(self):
+            self.header = SimpleNamespace(frame_id="", stamp=SimpleNamespace(sec=0, nanosec=0))
+            self.twist = SimpleNamespace(twist=SimpleNamespace(linear=vec(), angular=vec()),
+                                         covariance=[0.0] * 36)
+
+    class Vector3:
+        def __init__(self):
+            self.x = self.y = self.z = 0.0
+
+    def scalar(name):
+        return type(name, (), {"data": 0})
+
+    types_ = {"TwistWithCovarianceStamped": TwistWithCovarianceStamped, "Vector3": Vector3,
+              "Float32": scalar("Float32"), "Int32": scalar("Int32"),
+              "Float64MultiArray": scalar("Float64MultiArray")}
+    for name in ("Image", "CameraInfo", "Imu", "Odometry", "Float64Stamped",
+                 "ControlManagerDiagnostics"):
+        types_[name] = type(name, (), {})
+    return types_
+
+
+def fake_rospy():
+    from types import SimpleNamespace
+
+    pubs, subs = [], []
+    return SimpleNamespace(
+        Publisher=lambda topic, typ, queue_size=1: FakeEndpoint(pubs, topic, typ),
+        Subscriber=lambda topic, typ, cb, queue_size=1, tcp_nodelay=False: FakeEndpoint(
+            subs, topic, typ, cb),
+        Time=FakeTime, Duration=lambda s: s, loginfo=lambda *a: None, logwarn=say,
+        spin=lambda: None, pubs=pubs, subs=subs)
+
+
+def fake_rclpy():
+    from types import SimpleNamespace
+
+    pubs, subs = [], []
+    handle = SimpleNamespace(
+        create_publisher=lambda typ, topic, qos: FakeEndpoint(pubs, topic, typ),
+        create_subscription=lambda typ, topic, cb, qos: FakeEndpoint(subs, topic, typ, cb),
+        get_logger=lambda: SimpleNamespace(info=lambda *a: None, warn=say))
+    return SimpleNamespace(create_node=lambda name: handle, spin=lambda h: None,
+                           spin_once=lambda h, timeout_sec=0.1: None, pubs=pubs, subs=subs)
+
+
+#: the flights' bag topics -> the bridges' input topics
+BAG_TO_BRIDGE = {"/camera_info": "camera_info_in", "/imu": "imu_in", "/odometry": "odometry_in",
+                 "/height": "uav_height_in", "/image_raw": "camera_in"}
+
+
+def ros_messages(path: str, ros2: bool) -> list:
+    """(bridge input topic, ROS-shaped message) for every message of the
+    ROS1 bag at ``path``, in record order.  Each stamp comes from the raw
+    header (``seq, secs, nsecs``) as ``rospy.Time`` or as ROS2's
+    ``sec``/``nanosec``; the fields from the port's decoders."""
+    import struct
+    from types import SimpleNamespace
+
+    from mrs_optic_flow_tpu_torch.runtime import rosbag
+
+    def vec(v):
+        return SimpleNamespace(x=v[0], y=v[1], z=v[2])
+
+    def quat(q):
+        return SimpleNamespace(x=q[0], y=q[1], z=q[2], w=q[3])
+
+    out = []
+    with rosbag.BagReader(path) as reader:
+        for _, topic, _, raw in reader.messages():
+            secs, nsecs = struct.unpack_from("<II", raw, 4)
+            stamp = SimpleNamespace(sec=secs, nanosec=nsecs) if ros2 else FakeTime(secs + nsecs * 1e-9)
+            header = SimpleNamespace(stamp=stamp, frame_id="")
+            if topic == "/image_raw":
+                img = rosbag.decode_image_msg(raw).data
+                msg = SimpleNamespace(header=header, height=img.shape[0], width=img.shape[1],
+                                      encoding="mono8", step=img.shape[1], data=img.tobytes())
+            elif topic == "/camera_info":
+                info = rosbag.decode_camera_info_msg(raw)
+                fields = {"k": info.k, "d": info.d} if ros2 else {"K": info.k, "D": info.d}
+                msg = SimpleNamespace(header=header, binning_x=info.binning_x, **fields)
+            elif topic == "/imu":
+                imu = rosbag.decode_imu_msg(raw)
+                msg = SimpleNamespace(header=header, orientation=quat(imu.orientation),
+                                      angular_velocity=vec(imu.angular_velocity))
+            elif topic == "/odometry":
+                odo = rosbag.decode_odometry_msg(raw)
+                msg = SimpleNamespace(
+                    header=header, pose=SimpleNamespace(pose=SimpleNamespace(
+                        orientation=quat(odo.orientation))),
+                    twist=SimpleNamespace(twist=SimpleNamespace(
+                        linear=vec(odo.linear_velocity), angular=vec(odo.angular_velocity))))
+            else:
+                msg = SimpleNamespace(header=header, value=rosbag.decode_float64_stamped_msg(raw).value)
+            out.append((BAG_TO_BRIDGE[topic], msg))
+    return out
+
+
+def fly_bridge(fl, sim, path: str, ros2: bool, label: str, **overrides):
+    """Phase 16(l): ``RosBridge`` (or ``Ros2Bridge``) on the fake ``rospy``
+    (``rclpy``) builds its node on ``dev``; the ROS1 bag's camera info goes
+    in, the bridge warms up, then every message of the bag through the
+    subscribers' callbacks.  Returns (the bridge's fake publishers, the
+    node's publications, the report)."""
+    from mrs_optic_flow_tpu_torch.config import load_config
+    from mrs_optic_flow_tpu_torch.runtime import Ros2Bridge, RosBridge
+    from mrs_optic_flow_tpu_torch.runtime.ros_bridge import _PUBLISHERS
+
+    types_ = fake_msg_types()
+    if ros2:
+        fake = fake_rclpy()
+        bridge = Ros2Bridge(load_config(overrides=overrides), rclpy_module=fake, msg_types=types_,
+                            tf_buffer=FakeTfBuffer(), time_cls=lambda: None,
+                            duration_cls=lambda seconds: seconds, sensor_qos="sensor",
+                            device=fl.dev)
+    else:
+        fake = fake_rospy()
+        bridge = RosBridge(load_config(overrides=overrides), rospy_module=fake, msg_types=types_,
+                           tf_buffer=FakeTfBuffer(), device=fl.dev)
+    prefix = "~/" if ros2 else "~"
+    callbacks = {ep.topic[len(prefix):]: ep.cb for ep in fake.subs}
+    messages = ros_messages(path, ros2)
+    published = []
+    to_ros = bridge.node.publish
+    bridge.node.publish = lambda t, m: (published.append((t, m)), to_ros(t, m))
+    callbacks[messages[0][0]](messages[0][1])  # the camera info
+    bridge.warmup()
+
+    def run():
+        for topic, msg in messages:
+            callbacks[topic](msg)
+
+    rep = fl.measure(sim, label, bridge.node, published, run)
+    for ep in fake.pubs:
+        want = types_[_PUBLISHERS[ep.topic[len(prefix):]].type_key]
+        check(all(type(m) is want for m in ep.sent), f"{label}: {ep.topic} published another type")
+    return {ep.topic[len(prefix):]: ep.sent for ep in fake.pubs}, published, rep
+
+
+def ros_twist_diff(sent: dict, pub, ros2: bool) -> float:
+    """Largest difference [m/s] between the twists a bridge published as ROS
+    messages and a replay's, topic by topic and stamp by stamp (x and y)."""
+    def stamp(m):
+        st = m.header.stamp
+        return round(st.sec + st.nanosec * 1e-9 if ros2 else st.to_sec(), 6)
+
+    worst = 0.0
+    for topic in ("velocity_out", "velocity_out_longrange"):
+        a = {stamp(m): (m.twist.twist.linear.x, m.twist.twist.linear.y) for m in sent[topic]}
+        b = {round(m.stamp, 6): m.linear[:2] for t, m in pub if t == topic}
+        check(a.keys() == b.keys() and len(a) > 0, f"{topic}: bridge stamps differ")
+        for k in a:
+            worst = max(worst, float(np.abs(np.subtract(a[k], b[k])).max()))
+    return worst
+
+
+def check_bag_flight(rep, label: str) -> None:
+    """``test_flight_rosbag_roundtrip``'s budgets of a bag replay of the
+    level flight under ``height_based``."""
+    check(rep.rmse_xy < 0.15 and rep.nan_published == 0, f"{label}: {rep}")
+    check(len(rep.mode_switches) == 2, f"{label}: switches {rep.mode_switches}")
+    check(all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), f"{label}: {rep}")
 
 
 def run_fleet_flight(dev, totals: dict) -> dict:
@@ -2607,6 +2898,7 @@ def run_flights(dev) -> dict:
     import tempfile
 
     from mrs_optic_flow_tpu_torch import native
+    from mrs_optic_flow_tpu_torch.runtime import SyntheticScene
     from mrs_optic_flow_tpu_torch.runtime.flightsim import (
         FlightSimulator,
         banked_flight_profile,
@@ -2729,7 +3021,7 @@ def run_flights(dev) -> dict:
         f"{yr_err:.4f} rad/s; the banked tilt gate NaNs all but {len(finite)} decodes, lifted its "
         f"worst yaw-rate error is {yr.max():.2f} rad/s")
 
-    # (e)-(g) write their recordings into a directory removed at the end
+    # (e)-(l) write their recordings into a directory removed at the end
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         rec_dir = pathlib.Path(tmp)
@@ -2776,16 +3068,64 @@ def run_flights(dev) -> dict:
             f"preprocessing: gray_crop on all {crops} frames, twists within {host_diff:.3g} m/s of "
             f"(a); store_video: {len(overlays)} overlays in .ofrec and .avi, equal")
 
-        # (f) the fleet flight, (g) the CLI
+        # (f) the fleet flight
         fleet = run_fleet_flight(dev, fl.totals)
         say("[16f flights] the fleet flight within budget")
-        cli = run_cli(dev, rec_path)
-        say("[16g flights] the CLI's flight gate, synthetic and replay runs exit as wanted")
+
+        # (h) the level flight through both bag formats, from (a)'s renders
+        lr = {"long_range_mode": "height_based", "takeoff_height": 1.2}
+        bags, bag_pub = {}, {}
+        for fmt, name in (("bag", "level.bag"), ("bag2", "level_bag2")):
+            label = f"level {fmt} replay"
+            bags[fmt] = (str(rec_dir / name), len(level.samples))
+            node, bag_pub[fmt], rep = fl.fly_bag(level, level_frames, bags[fmt][0], fmt, label,
+                                                 mrs_optic_flow=lr)
+            check_bag_flight(rep, label)
+            check(not any(np.isnan(m.linear[:2]).any() for t, m in bag_pub[fmt]
+                          if t.startswith("velocity_out")), f"{label}: a NaN twist")
+        bag_diff = twist_diff(bag_pub["bag"], bag_pub["bag2"])
+        check(bag_diff <= HOST_PRE_TWIST_TOL, f"ROS1 and ROS2 replays differ by {bag_diff} m/s")
+        say(f"[16h flights] the level flight through .bag and rosbag2 within budget; ROS1 and "
+            f"ROS2 twists within {bag_diff:.3g} m/s")
+
+        # (i) the banked flight through both formats
+        for fmt, name in (("bag", "banked.bag"), ("bag2", "banked_bag2")):
+            label = f"banked {fmt} replay"
+            _, _, rep = fl.fly_bag(banked, banked_frames, str(rec_dir / name), fmt, label,
+                                   mrs_optic_flow=off)
+            check(rep.rmse_xy < 0.12 and rep.per_phase_rmse["climb"] < 0.10
+                  and rep.nan_published == 0, f"{label}: {rep}")
+            check(all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), f"{label}: {rep}")
+        say("[16i flights] the banked flight through .bag and rosbag2 within budget")
+
+        # (j) the banked flight's scene variants
+        for variant, kw in (("lens distortion", {"dist_coeffs": (-0.25, 0.06, 1e-4, -2e-4, -0.004)}),
+                            ("principal point 420,230", {"cx": 420.0, "cy": 230.0})):
+            label = f"banked {variant}"
+            sim = FlightSimulator(banked.samples, scene=SyntheticScene(seed=7, texture_cutoff=0.3, **kw))
+            node, _, rep = fl.fly(sim, fl.render(sim, label), label, mrs_optic_flow=off)
+            check_banked_report(rep, node, label)
+        say("[16j flights] the banked scene variants within the nominal banked budgets")
+
+        # (l) the bridges on fake rospy/rclpy, fed (h)'s ROS1 bag
+        bridge_diff = {}
+        for ros2, label in ((False, "level RosBridge"), (True, "level Ros2Bridge")):
+            sent, pub, rep = fly_bridge(fl, level, bags["bag"][0], ros2, label, mrs_optic_flow=lr)
+            check_bag_flight(rep, label)
+            bridge_diff[label] = max(ros_twist_diff(sent, bag_pub["bag"], ros2),
+                                     twist_diff(pub, bag_pub["bag"]))
+            check(bridge_diff[label] <= HOST_PRE_TWIST_TOL,
+                  f"{label}: twists {bridge_diff[label]} m/s from (h)'s replay")
+        say(f"[16l flights] RosBridge and Ros2Bridge publish (h)'s twists within "
+            f"{max(bridge_diff.values()):.3g} m/s, every message of its builders' type")
+
+        # (g) and (k): the CLI
+        cli = run_cli(dev, rec_path, bags)
     wall = time.perf_counter() - t_phase
     say(f"[16 flights] {wall:.1f} s")
     return {"flights": fl.rows, "launches": fl.totals, "fleet_flight": fleet, "cli": cli,
             "host_preprocess_gray_crops": crops, "host_preprocess_twist_diff": host_diff,
-            "wall_s": wall}
+            "bag_twist_diff": bag_diff, "bridge_twist_diff": bridge_diff, "wall_s": wall}
 
 
 def twist_diff(pub_a, pub_b) -> float:

@@ -2,22 +2,25 @@
 
 The port's copy of ``python -m mrs_optic_flow_tpu``: drives
 :class:`OpticFlowNode` over a recorded stream (``--replay file.ofrec``, the
-native Recorder format), a synthetic constant-velocity scene
+native Recorder format; ``--replay flight.bag``, an offline ROS1 rosbag; or
+``--replay flight_dir/`` / ``flight.db3`` / ``flight.mcap``, a ROS2
+rosbag2 — no ROS needed either way), a synthetic constant-velocity scene
 (``--synthetic``), the closed-loop flight simulator as a regression gate
 (``--flight``) or a synthetic fleet (``--fleet N``), printing published
-twists and the profiler report.  Config overrides take ``key=value`` dotted
-paths like launch-file substitutions.
+twists and the profiler report; ``--ros`` and ``--ros2`` run the node on a
+live ROS1 or ROS2 graph, and ``--bag-info`` lists a bag's topics.  Config
+overrides take ``key=value`` dotted paths like launch-file substitutions.
 
-Everything runs on ``--device`` (default ``cuda``); without a CUDA device
-the run fails with status 2 rather than fall back to the CPU, so CPU runs
-pass ``--device cpu``.  The ROS bridges (``--ros``, ``--ros2``) and the
-bags (``--bag-info``, ``--replay`` of a ``.bag`` or a rosbag2) are not
-ported yet (ROADMAP queue 1 item 9) and exit with status 2.
+Everything that builds a node runs on ``--device`` (default ``cuda``);
+without a CUDA device the run fails with status 2 rather than fall back to
+the CPU, so CPU runs pass ``--device cpu``.  ``--bag-info`` builds no node.
 
 Examples::
 
     python -m mrs_optic_flow_tpu_torch --synthetic --frames 20 --velocity 1.0,-0.3
     python -m mrs_optic_flow_tpu_torch --flight banked --quiet
+    python -m mrs_optic_flow_tpu_torch --replay flight.bag --quiet
+    python -m mrs_optic_flow_tpu_torch --bag-info flight_dir/
     python -m mrs_optic_flow_tpu_torch --replay flight.ofrec --fps 30 \
         --set mrs_optic_flow.long_range_mode=height_based --device cpu
 """
@@ -26,12 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
-
-#: exit status of a mode that is not ported yet
-NOT_PORTED = 2
-NOT_PORTED_MSG = "{what} is not ported to PyTorch yet (ROADMAP queue 1 item 9: bridges and bags)"
 
 
 def _parse_overrides(pairs):
@@ -73,9 +71,41 @@ def filter_ros_remap_args(argv):
     return out
 
 
-def _is_bag(path: str) -> bool:
-    """A ROS1 ``.bag``, a rosbag2 ``.db3`` file, or a rosbag2 directory."""
-    return path.endswith((".bag", ".db3")) or os.path.isdir(path)
+def _run_bag_info(path):
+    """``--bag-info``: topics/types/counts/duration of a ROS1 ``.bag`` or a
+    ROS2 rosbag2 (``.db3``/``.mcap`` file / bag directory) — the ``rosbag
+    info`` / ``ros2 bag info`` analog, without ROS (runtime/rosbag{,2}.py)."""
+    from mrs_optic_flow_tpu_torch.runtime.rosbag2 import Bag2Reader, is_rosbag2
+
+    if is_rosbag2(path):
+        reader_ctx = Bag2Reader(path)
+
+        def _types(r):
+            return dict(r.topic_types)
+    else:
+        from mrs_optic_flow_tpu_torch.runtime.rosbag import BagReader
+
+        reader_ctx = BagReader(path)
+
+        def _types(r):
+            return {topic: tn for topic, tn in r.connections.values()}
+
+    with reader_ctx as reader:
+        counts: dict = {}
+        t0 = t1 = None
+        for t, topic, _type_name, _raw in reader.messages():
+            counts[topic] = counts.get(topic, 0) + 1
+            t0 = t if t0 is None else min(t0, t)
+            t1 = t if t1 is None else max(t1, t)
+        types = _types(reader)
+        for topic in types:
+            counts.setdefault(topic, 0)
+        duration = (t1 - t0) if t1 is not None else 0.0
+        print(f"{path}: {sum(counts.values())} messages, {duration:.2f} s")
+        width = max((len(t) for t in counts), default=0)
+        for topic in sorted(counts):
+            print(f"  {topic:<{width}}  {counts[topic]:>7}  {types.get(topic, '?')}")
+    return 0
 
 
 def _run_flight(args, cfg, device):
@@ -174,6 +204,58 @@ def _run_fleet(ap, args, cfg, device):
     return 0
 
 
+def _run_ros(args, cfg, device):
+    """``--ros``: bring the node up on a live ROS1 graph — the deployment
+    shape of the reference nodelet (``launch/optic_flow.launch:29``), minus
+    the nodelet manager.  ``rospy.init_node`` happens here; topic remapping
+    is roslaunch's, via ``launch/optic_flow_tpu.launch``."""
+    import rospy  # noqa: PLC0415 — only a ROS1 environment has this
+
+    from mrs_optic_flow_tpu_torch.runtime.ros_bridge import RosBridge
+
+    rospy.init_node("optic_flow")
+    bridge = RosBridge(
+        cfg,
+        camera_frame=args.camera_frame or "camera",
+        uav_frame=args.uav_frame or "fcu",
+        uav_untilted_frame=args.uav_untilted_frame,
+        device=device,
+    )
+    if not args.no_warmup:
+        rospy.loginfo("[OpticFlow]: warming up the kernels")
+        bridge.warmup()
+        rospy.loginfo("[OpticFlow]: warm; streaming")
+    bridge.spin()
+    return 0
+
+
+def _run_ros2(args, cfg, device):
+    """``--ros2``: bring the node up on a live ROS2 graph
+    (runtime.Ros2Bridge; the rclpy twin of ``--ros``)."""
+    import rclpy  # noqa: PLC0415 — only a ROS2 environment has this
+
+    from mrs_optic_flow_tpu_torch.runtime.ros2_bridge import Ros2Bridge
+
+    rclpy.init()
+    try:
+        bridge = Ros2Bridge(
+            cfg,
+            camera_frame=args.camera_frame or "camera",
+            uav_frame=args.uav_frame or "fcu",
+            uav_untilted_frame=args.uav_untilted_frame,
+            device=device,
+        )
+        log = bridge.handle.get_logger().info
+        if not args.no_warmup:
+            log("[OpticFlow]: warming up the kernels")
+            bridge.warmup()
+            log("[OpticFlow]: warm; streaming")
+        bridge.spin()
+    finally:
+        rclpy.shutdown()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mrs_optic_flow_tpu_torch")
     ap.add_argument("--config", help="YAML config path (default: configs/default.yaml)")
@@ -184,9 +266,19 @@ def main(argv=None):
                          "device fails unless this is cpu)")
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--replay", metavar="FILE",
-                     help="replay a recorded .ofrec stream (native Recorder format); "
-                          "ROS bags are not ported yet")
-    src.add_argument("--bag-info", metavar="BAG", help="(not ported yet)")
+                     help="replay a recorded stream (.ofrec native Recorder "
+                          "format, a ROS1 .bag, or a ROS2 rosbag2 .db3/.mcap "
+                          "file / bag directory — no ROS needed)")
+    ap.add_argument("--bag-topic", action="append", default=[],
+                    metavar="ROLE=TOPIC",
+                    help="pin a bag replay role to a topic (roles: image, "
+                         "compressed_image, camera_info, imu, odometry, "
+                         "height); repeatable — needed when the bag has "
+                         "several topics of one type")
+    src.add_argument("--bag-info", metavar="BAG",
+                     help="print a bag's topics/types/counts (ROS1 .bag or "
+                          "rosbag2 .db3/.mcap/directory; the `rosbag info` / "
+                          "`ros2 bag info` analog, ROS-free) and exit")
     src.add_argument("--synthetic", action="store_true", help="synthetic scene run")
     src.add_argument("--fleet", type=int, metavar="N",
                      help="synthetic fleet-serving demo: N camera streams, "
@@ -204,8 +296,20 @@ def main(argv=None):
                          "90-deg-yawed mounting)")
     ap.add_argument("--flight-rmse-budget", type=float, default=0.15,
                     help="--flight xy-velocity RMSE gate [m/s]")
-    src.add_argument("--ros", action="store_true", help="(not ported yet)")
-    src.add_argument("--ros2", action="store_true", help="(not ported yet)")
+    src.add_argument("--ros", action="store_true",
+                     help="run as a ROS1 node (runtime.RosBridge; needs rospy)")
+    src.add_argument("--ros2", action="store_true",
+                     help="run as a ROS2 node (runtime.Ros2Bridge; needs rclpy)")
+    ap.add_argument("--camera-frame", default=None,
+                    help="tf2 camera frame id (--ros live lookups; with "
+                         "--replay of a ROS1/ROS2 bag, resolve camera->body "
+                         "from the bag's /tf_static//tf instead of identity)")
+    ap.add_argument("--uav-frame", default=None,
+                    help="tf2 body frame id (see --camera-frame)")
+    ap.add_argument("--uav-untilted-frame", default="fcu_untilted",
+                    help="--ros: published twist frame id")
+    ap.add_argument("--no-warmup", action="store_true",
+                    help="--ros: skip the kernels' build and warm-up run before streaming")
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--fps", type=float, default=20.0)
     ap.add_argument("--velocity", default="1.0,-0.3", help="synthetic vx,vy [m/s]")
@@ -216,12 +320,8 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
-    for flag, what in ((args.ros, "--ros"), (args.ros2, "--ros2"),
-                       (args.bag_info, "--bag-info"),
-                       (args.replay and _is_bag(args.replay), "--replay of a ROS bag")):
-        if flag:
-            print(NOT_PORTED_MSG.format(what=what), file=sys.stderr)
-            return NOT_PORTED
+    if args.bag_info:
+        return _run_bag_info(args.bag_info)
 
     import numpy as np
 
@@ -244,6 +344,10 @@ def main(argv=None):
     cfg = load_config(args.config or None, overrides=_parse_overrides(args.overrides))
     dt = 1.0 / args.fps
 
+    if args.ros:
+        return _run_ros(args, cfg, device)
+    if args.ros2:
+        return _run_ros2(args, cfg, device)
     if args.flight:
         return _run_flight(args, cfg, device)
     if args.fleet is not None:
@@ -253,7 +357,13 @@ def main(argv=None):
     log = (lambda s: None) if args.quiet else print
     node = OpticFlowNode(cfg, device=device, publish=lambda t, m: published.append((t, m)),
                          log=log)
-    node.set_transforms((0.0, 0.0, 0.0, 1.0))
+    from mrs_optic_flow_tpu_torch.runtime.rosbag2 import is_rosbag2
+
+    replay_rosbag2 = bool(args.replay) and is_rosbag2(args.replay)
+    bag_replay = replay_rosbag2 or (args.replay or "").endswith(".bag")
+    bag_tf = bag_replay and bool(args.camera_frame and args.uav_frame)
+    if not bag_tf:  # bag tf mode resolves camera->body from /tf_static
+        node.set_transforms((0.0, 0.0, 0.0, 1.0))
     if args.synthetic:
         v = tuple(float(x) for x in args.velocity.split(","))
         scene = SyntheticScene(uav_height=args.height)
@@ -274,6 +384,26 @@ def main(argv=None):
         stream.run()
         n_frames = args.frames
         truth = f" (true {v[0]:+.3f} {v[1]:+.3f})"
+    elif bag_replay:
+        # offline rosbag replay — ROS1 .bag (runtime/rosbag.py) or ROS2
+        # .db3/.mcap/bag directory (runtime/rosbag2.py): topics auto-detected
+        # by type; level-flight defaults fill roles the bag doesn't carry
+        if replay_rosbag2:
+            from mrs_optic_flow_tpu_torch.runtime.rosbag2 import replay_bag2 as _replay
+        else:
+            from mrs_optic_flow_tpu_torch.runtime.rosbag import replay_bag as _replay
+
+        topics = {}
+        for pin in args.bag_topic:
+            role, sep, topic = pin.partition("=")
+            if not sep or not role or not topic:
+                ap.error(f"--bag-topic needs ROLE=TOPIC, got {pin!r}")
+            topics[role] = topic
+        n_frames = _replay(node, args.replay, topics or None,
+                           default_height=args.height,
+                           camera_frame=args.camera_frame,
+                           uav_frame=args.uav_frame)
+        truth = ""
     else:
         from mrs_optic_flow_tpu_torch import native
 

@@ -2,9 +2,8 @@
 
 The port's own copy of :mod:`mrs_optic_flow_tpu.runtime.flightsim` (numpy
 and scipy; the port imports nothing of the JAX package): the same profiles,
-renders, event streams and report.  The bag writers (``record_bag``,
-``record_bag2``) are not ported yet and raise ``NotImplementedError``
-(ROADMAP queue 1 item 9).
+renders, event streams, recordings (``.ofrec``, ROS1 bag, rosbag2) and
+report.
 
 The reference's ultimate validation is real UAV flights consuming the full
 policy surface — the four ``long_range_mode`` policies and the
@@ -416,14 +415,82 @@ class FlightSimulator:
                 rec.write(s.t, np.clip(np.rint(img), 0, 255).astype(np.uint8))
 
     def record_bag(self, path: str, frames: Optional[Sequence[np.ndarray]] = None):
-        """The flight as a ROS1 bag: needs the bag writer, not ported yet."""
-        raise NotImplementedError("record_bag needs the ROS1 bag writer, not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+        """Write the flight as a ROS1 bag (``runtime.rosbag.BagWriter``) —
+        camera info, IMU, odometry, height, and the rendered frames on the
+        reference's topic types — so ``replay_bag`` drives the node from
+        the SAME artifact a real flight recording would."""
+        from mrs_optic_flow_tpu_torch.runtime import rosbag as rb
+
+        if frames is None:
+            frames = self.frames()
+        info = self.scene.camera_info()
+        with rb.BagWriter(path) as bag:
+            bag.write(
+                "/camera_info", "sensor_msgs/CameraInfo",
+                self.samples[0].t - 1.0,
+                rb.encode_camera_info_msg(
+                    info, self.samples[0].t - 1.0,
+                    shape=(self.scene.height_px, self.scene.width),
+                ),
+            )
+            for s, img in zip(self.samples, frames):
+                q = tuple(np_quat_from_rpy(s.roll, s.pitch, s.yaw))
+                bag.write("/imu", "sensor_msgs/Imu", s.t - 1e-4,
+                          rb.encode_imu_msg(Imu(
+                              stamp=s.t,
+                              angular_velocity=(s.roll_rate, s.pitch_rate,
+                                                s.yaw_rate),
+                              orientation=q)))
+                bag.write("/odometry", "nav_msgs/Odometry", s.t - 1e-4,
+                          rb.encode_odometry_msg(Odometry(
+                              stamp=s.t, orientation=q,
+                              linear_velocity=tuple(s.vel),
+                              angular_velocity=(s.roll_rate, s.pitch_rate,
+                                                s.yaw_rate))))
+                bag.write("/height", "mrs_msgs/Float64Stamped", s.t - 1e-4,
+                          rb.encode_float64_stamped_msg(Float64Stamped(
+                              stamp=s.t, value=float(s.pos[2]))))
+                bag.write("/image_raw", "sensor_msgs/Image", s.t,
+                          rb.encode_image_msg(ImageMsg(stamp=s.t, data=img)))
 
     def record_bag2(self, path: str, frames: Optional[Sequence[np.ndarray]] = None):
-        """The flight as a ROS2 rosbag2: needs the bag writer, not ported yet."""
-        raise NotImplementedError("record_bag2 needs the rosbag2 writer, not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+        """Write the flight as a ROS2 rosbag2 directory
+        (``runtime.rosbag2.Bag2Writer``: sqlite3 storage + metadata.yaml,
+        CDR serialization) — the ROS2 twin of :meth:`record_bag`, replayed
+        by ``replay_bag2`` / stock ``ros2 bag play``."""
+        from mrs_optic_flow_tpu_torch.runtime import rosbag2 as rb2
+
+        if frames is None:
+            frames = self.frames()
+        info = self.scene.camera_info()
+        with rb2.Bag2Writer(path) as bag:
+            bag.write(
+                "/camera_info", "sensor_msgs/msg/CameraInfo",
+                self.samples[0].t - 1.0,
+                rb2.encode_camera_info_msg(
+                    info, self.samples[0].t - 1.0,
+                    shape=(self.scene.height_px, self.scene.width),
+                ),
+            )
+            for s, img in zip(self.samples, frames):
+                q = tuple(np_quat_from_rpy(s.roll, s.pitch, s.yaw))
+                bag.write("/imu", "sensor_msgs/msg/Imu", s.t - 1e-4,
+                          rb2.encode_imu_msg(Imu(
+                              stamp=s.t,
+                              angular_velocity=(s.roll_rate, s.pitch_rate,
+                                                s.yaw_rate),
+                              orientation=q)))
+                bag.write("/odometry", "nav_msgs/msg/Odometry", s.t - 1e-4,
+                          rb2.encode_odometry_msg(Odometry(
+                              stamp=s.t, orientation=q,
+                              linear_velocity=tuple(s.vel),
+                              angular_velocity=(s.roll_rate, s.pitch_rate,
+                                                s.yaw_rate))))
+                bag.write("/height", "mrs_msgs/msg/Float64Stamped", s.t - 1e-4,
+                          rb2.encode_float64_stamped_msg(Float64Stamped(
+                              stamp=s.t, value=float(s.pos[2]))))
+                bag.write("/image_raw", "sensor_msgs/msg/Image", s.t,
+                          rb2.encode_image_msg(ImageMsg(stamp=s.t, data=img)))
 
 
 @dataclasses.dataclass

@@ -627,7 +627,9 @@ class OpticFlowNode:
 
         c = self.config
         height = self.uav_height
-        img = np.ascontiguousarray(msg.data)
+        # a writable copy of a read-only frame (a bag's or a ROS message's
+        # buffer): torch.from_numpy does not take read-only arrays
+        img = np.require(msg.data, requirements=("C", "W"))
         channels = img.shape[2] if img.ndim == 3 else 1
         cx = float(self.camera_matrix[0, 2])
         if abs(c.scale_factor - 1.0) > 0.01:

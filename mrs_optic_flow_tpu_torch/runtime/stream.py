@@ -116,6 +116,7 @@ class SyntheticScene:
         t -= t.min()
         self.texture = (t / t.max() * 255.0).astype(np.float32)
         self._ts = texture_size
+        self._grid = None
 
     def camera_info(self) -> CameraInfo:
         return CameraInfo(
@@ -137,17 +138,22 @@ class SyntheticScene:
             y = (yd - dy) * icdist
         return x, y
 
+    def _pixel_rays(self):
+        """Every pixel's undistorted normalized coordinates ``(xn, yn)``: the
+        same for every frame, so computed once (the distortion model's
+        inversion takes most of a distorted render)."""
+        if self._grid is None:
+            uu, vv = np.meshgrid(np.arange(self.width), np.arange(self.height_px))
+            xd = (uu - self.cx) / self.fx
+            yd = (vv - self.cy) / self.fy
+            if np.any(self.dist_coeffs != 0.0):
+                xd, yd = self._undistort_np(xd, yd)
+            self._grid = (xd, yd)
+        return self._grid
+
     def render(self, cam_xy: Tuple[float, float]) -> np.ndarray:
         """Grayscale frame for a camera at ground position ``cam_xy`` [m]."""
-        u = np.arange(self.width)
-        v = np.arange(self.height_px)
-        uu, vv = np.meshgrid(u, v)
-        xd = (uu - self.cx) / self.fx
-        yd = (vv - self.cy) / self.fy
-        if np.any(self.dist_coeffs != 0.0):
-            xn, yn = self._undistort_np(xd, yd)
-        else:
-            xn, yn = xd, yd
+        xn, yn = self._pixel_rays()
         gx = cam_xy[0] + self.uav_height * xn
         gy = cam_xy[1] + self.uav_height * yn
         tx = (gx * self.texture_scale) % self._ts
@@ -179,15 +185,7 @@ class SyntheticScene:
         """
         from scipy.spatial.transform import Rotation
 
-        u = np.arange(self.width)
-        v = np.arange(self.height_px)
-        uu, vv = np.meshgrid(u, v)
-        xd = (uu - self.cx) / self.fx
-        yd = (vv - self.cy) / self.fy
-        if np.any(self.dist_coeffs != 0.0):
-            xn, yn = self._undistort_np(xd, yd)
-        else:
-            xn, yn = xd, yd
+        xn, yn = self._pixel_rays()
         rays = np.stack([xn, yn, np.ones_like(xn)], axis=-1)  # camera frame
         rpy_arr = np.asarray(rpy, np.float64)
         if rpy_arr.shape == (3, 3):

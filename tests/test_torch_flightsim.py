@@ -176,11 +176,85 @@ def test_frame_stream_orders_by_stamp_then_arrival():
         stream.add("sonar", 0.0, None)
 
 
-def test_bag_writers_not_ported():
-    sim = port_fs.FlightSimulator(port_fs.takeoff_cruise_descent_profile()[:1])
-    for fn in (sim.record_bag, sim.record_bag2):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            fn("unused", frames=[])
+def _mini_sims():
+    """The mini flight's simulators of both packages on the same scene."""
+    return (port_fs.FlightSimulator(port_fs.takeoff_cruise_descent_profile(**MINI_PROFILE),
+                                    scene=port_stream.SyntheticScene(**MINI_SCENE)),
+            jax_fs.FlightSimulator(jax_fs.takeoff_cruise_descent_profile(**MINI_PROFILE),
+                                   scene=jax_stream.SyntheticScene(**MINI_SCENE)))
+
+
+def test_record_bag_equals_jax():
+    """``record_bag`` of the port writes the JAX simulator's ROS1 bag byte
+    for byte (the mini flight, its own renders), and ``record_bag2`` the
+    same ``metadata.yaml`` and messages; the JAX readers read the port's
+    bags to the messages of the JAX package's own."""
+    import tempfile
+
+    from mrs_optic_flow_tpu.runtime import rosbag as jax_rb
+    from mrs_optic_flow_tpu.runtime import rosbag2 as jax_rb2
+
+    sims = _mini_sims()
+    frames = sims[0].frames()
+    with tempfile.TemporaryDirectory() as tmp:
+        bags = [f"{tmp}/port.bag", f"{tmp}/jax.bag"]
+        dirs = [f"{tmp}/port_bag2", f"{tmp}/jax_bag2"]
+        for sim, bag, d in zip(sims, bags, dirs):
+            sim.record_bag(bag, frames)
+            sim.record_bag2(d, frames)
+        assert open(bags[0], "rb").read() == open(bags[1], "rb").read()
+        assert (open(f"{dirs[0]}/metadata.yaml").read()
+                == open(f"{dirs[1]}/metadata.yaml").read().replace("jax_bag2", "port_bag2"))
+        read = []
+        for path, reader in ((bags[0], jax_rb.BagReader), (bags[1], jax_rb.BagReader),
+                             (dirs[0], jax_rb2.Bag2Reader), (dirs[1], jax_rb2.Bag2Reader)):
+            with reader(path) as r:
+                read.append(list(r.messages()))
+    assert read[0] == read[1] and read[2] == read[3]
+    n = len(sims[0].samples)
+    assert len(read[0]) == len(read[2]) == 1 + 4 * n
+
+
+@pytest.mark.parametrize("fmt", ["bag", "bag2"])
+def test_mini_flight_bag_roundtrip_matches_jax(fmt, tmp_path):
+    """The mini flight written by the JAX writers (``record_bag`` or
+    ``record_bag2``), replayed through the port's ``replay_bag``/
+    ``replay_bag2`` into the port node and through the JAX package's into
+    the JAX node: the same frames, switches and coverage, ``rmse_xy``
+    within ``MINI_RMSE_TOL`` (the draws seeded as ``fly_pair``'s)."""
+    import jax
+
+    from mrs_optic_flow_tpu.config import load_config as jax_load_config
+    from mrs_optic_flow_tpu.runtime import rosbag as jax_rb
+    from mrs_optic_flow_tpu.runtime import rosbag2 as jax_rb2
+    from mrs_optic_flow_tpu.runtime.node import OpticFlowNode as JaxNode
+    from mrs_optic_flow_tpu_torch.runtime import rosbag, rosbag2
+    from torch_mini_flight import MINI_OVERRIDES
+
+    port_sim, jax_sim = _mini_sims()
+    path = str(tmp_path / ("mini.bag" if fmt == "bag" else "mini_bag2"))
+    (jax_sim.record_bag if fmt == "bag" else jax_sim.record_bag2)(path, jax_sim.frames())
+
+    published, jax_pub = [], []
+    node = OpticFlowNode(load_config(overrides=MINI_OVERRIDES), device="cpu",
+                         publish=lambda t, m: published.append((t, m)), log=lambda s: None)
+    node._gen.manual_seed(0)
+    node.set_transforms((0.0, 0.0, 0.0, 1.0))
+    jax_node = JaxNode(jax_load_config(overrides=MINI_OVERRIDES),
+                       publish=lambda t, m: jax_pub.append((t, m)), log=lambda s: None,
+                       enable_profiler=False)
+    jax_node._key = jax.random.PRNGKey(0)
+    jax_node.set_transforms((0.0, 0.0, 0.0, 1.0))
+    replay, jax_replay = ((rosbag.replay_bag, jax_rb.replay_bag) if fmt == "bag"
+                          else (rosbag2.replay_bag2, jax_rb2.replay_bag2))
+    assert replay(node, path) == jax_replay(jax_node, path) == len(port_sim.samples)
+
+    rep = port_fs.evaluate_flight(port_sim.samples, published)
+    jax_rep = jax_fs.evaluate_flight(jax_sim.samples, jax_pub)
+    assert rep.rmse_xy < 0.45 and rep.nan_published == 0, rep
+    assert rep.mode_switches == jax_rep.mode_switches and len(rep.mode_switches) >= 1
+    assert rep.per_phase_coverage == jax_rep.per_phase_coverage
+    assert abs(rep.rmse_xy - jax_rep.rmse_xy) < MINI_RMSE_TOL, (rep.rmse_xy, jax_rep.rmse_xy)
 
 
 # --------------------------------------------------------------------------- #
@@ -309,6 +383,59 @@ def test_banked_flight_imu(banked_flight):
     assert all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), rep
     assert node.health["consecutive_failures"] <= 1
     assert {m.frame_id for t, m in published if t == "velocity_out"} == {"fcu_untilted"}
+
+
+def _replay_port(replay, path, **overrides):
+    published = []
+    node = OpticFlowNode(load_config(overrides=overrides), device="cpu",
+                         publish=lambda t, m: published.append((t, m)), log=lambda s: None)
+    node.set_transforms((0.0, 0.0, 0.0, 1.0))
+    return node, published, replay(node, path)
+
+
+def test_level_flight_rosbag2_roundtrip(level_flight, tmp_path):
+    """``test_flight_rosbag2_roundtrip`` on the port at full width: the level
+    flight through ``record_bag2`` (sqlite3 storage, CDR) and
+    ``replay_bag2`` into the port node under ``height_based``."""
+    from mrs_optic_flow_tpu_torch.runtime.rosbag2 import Bag2Reader, replay_bag2
+
+    sim, frames = level_flight
+    path = str(tmp_path / "flight_bag2")
+    sim.record_bag2(path, frames)
+    with Bag2Reader(path) as reader:
+        by_type = reader.topics_by_type()
+    assert by_type["sensor_msgs/msg/Image"] == ["/image_raw"]
+    assert by_type["mrs_msgs/msg/Float64Stamped"] == ["/height"]
+
+    _, published, n_frames = _replay_port(
+        replay_bag2, path, mrs_optic_flow={"long_range_mode": "height_based",
+                                           "takeoff_height": 1.2})
+    assert n_frames == len(sim.samples)
+    rep = port_fs.evaluate_flight(sim.samples, published)
+    assert rep.rmse_xy < 0.15 and rep.nan_published == 0, rep
+    assert len(rep.mode_switches) == 2, rep.mode_switches
+    assert all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), rep
+
+
+@pytest.mark.parametrize("fmt", ["bag", "bag2"])
+def test_banked_flight_bag_roundtrip(banked_flight, fmt, tmp_path):
+    """``test_flight_banked_bag_roundtrips`` on the port, one format a case:
+    the attitude quaternions and rates survive transport (the climb
+    budget)."""
+    from mrs_optic_flow_tpu_torch.runtime.rosbag import replay_bag
+    from mrs_optic_flow_tpu_torch.runtime.rosbag2 import replay_bag2
+
+    sim, frames = banked_flight
+    path = str(tmp_path / ("banked.bag" if fmt == "bag" else "banked_bag2"))
+    (sim.record_bag if fmt == "bag" else sim.record_bag2)(path, frames)
+    _, published, n_frames = _replay_port(replay_bag if fmt == "bag" else replay_bag2, path,
+                                          mrs_optic_flow={"long_range_mode": "always_off"})
+    assert n_frames == len(sim.samples)
+    rep = port_fs.evaluate_flight(sim.samples, published)
+    assert rep.rmse_xy < 0.12, rep
+    assert rep.per_phase_rmse["climb"] < 0.10, rep.per_phase_rmse
+    assert rep.nan_published == 0, rep
+    assert all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), rep
 
 
 def test_flight_ofrec_roundtrip(level_flight, tmp_path):

@@ -35,6 +35,10 @@ PORT_MODULES = [
     "mrs_optic_flow_tpu_torch.runtime.stream",
     "mrs_optic_flow_tpu_torch.runtime.flightsim",
     "mrs_optic_flow_tpu_torch.runtime.feeder",
+    "mrs_optic_flow_tpu_torch.runtime.ros_bridge",
+    "mrs_optic_flow_tpu_torch.runtime.ros2_bridge",
+    "mrs_optic_flow_tpu_torch.runtime.rosbag",
+    "mrs_optic_flow_tpu_torch.runtime.rosbag2",
     "mrs_optic_flow_tpu_torch.__main__",
 ]
 
@@ -60,6 +64,26 @@ def test_new_modules_import_without_jax_yaml_cv2():
         "from mrs_optic_flow_tpu_torch.config import load_config; load_config()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'yaml', 'cv2', 'mrs_optic_flow_tpu') and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_runtime_imports_without_ros():
+    """The runtime, which exports both bridges and the bag readers and
+    writers, imports with ``rospy``, ``rclpy``, ``tf2_ros`` and the message
+    packages blocked and pulls in none of them, nor ``lz4``/``zstandard``."""
+    code = (
+        "import sys; blocked = ('rospy', 'rclpy', 'tf2_ros', 'geometry_msgs', 'sensor_msgs', "
+        "'std_msgs', 'nav_msgs', 'mrs_msgs', 'jax', 'yaml', 'cv2')\n"
+        "sys.modules.update(dict.fromkeys(blocked))\n"
+        "from mrs_optic_flow_tpu_torch.runtime import (Bag2Reader, Bag2Writer, BagReader, "
+        "BagWriter, Ros2Bridge, RosBridge, replay_bag, replay_bag2)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in blocked + ('lz4', "
+        "'zstandard', 'mrs_optic_flow_tpu') and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
