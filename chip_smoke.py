@@ -171,7 +171,33 @@ Phases, each printing a line when it finishes:
     with scale/rotation (none without), both once a fleet tick after the
     first; each prints its RMSE, the node's p50 and p90 latency and its
     render and node wall times, a bag flight also the bag's write and read
-    seconds.
+    seconds;
+17. the rest of the public surface at ``configs/default.yaml``'s geometry
+    (480² crop, 4x4 x 120 px, fx = fy = 420, 256 hypotheses): (a)
+    ``OpticFlowCalc`` over ``FftMethod`` on phase 5's 20 frames (gray,
+    cropped): ``process_image`` equal to ``FftMethod.step`` exactly,
+    ``raw_output`` filled, kernel A once a call; ``process_image_long_range``
+    likewise (A at 120 px); over ``FftMethod`` at patch 60 (kernel D) and
+    ``BlockMethod`` (kernel C) within ``SHIFT_TOL`` of the engine's step;
+    (b) ``sharded_flow_step`` at the bench point on ``make_mesh()`` (one
+    card) and on ``make_mesh(4, device="cuda:0")``: shifts within 1e-5 px of
+    ``step_batch``, NaN for NaN, kernel A once a shard, frame-pairs/s beside
+    ``step_batch``'s (printed, not claimed); ``BatchPipeline`` over the 4
+    shards: ``step_pre`` on 1,024 pairs of phase 15's texture under
+    sync-as-error and ``step_long_range``, each against the unsharded
+    pipeline with the same generator (``ok`` and, shard by shard,
+    ``n_inliers`` equal, shifts within 1e-5 px, twists within 5e-3 m/s) and
+    the truth; (c) over the 4 shards against unsharded: ``FleetServer`` of
+    128 BGR 752x480 streams for 5 ticks (twists within 5e-3 m/s, A once a
+    shard a tick), 16 streams with scale/rotation fused (A and B once a
+    shard a tick, decodes within 1e-4), ``ServingLoop(batch_size=512,
+    depth=2)`` over 1,024 requests; (d) ``estimate_tran_rot_vvel`` and the
+    allsac helpers on the card equal to the CPU (1e-6 relative) on
+    ``tests/test_filters.py``'s cases and on the 3x3 grid of window shifts
+    of phase 5's first pair; (e) the method-4 node with a ``Profiler``
+    logging events and tracing on 5 frames: kernel A's CUDA kernel and one
+    ``frame_program`` range a frame program in the exported trace, one log
+    line a routine call.  It prints one line.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
@@ -180,7 +206,8 @@ geometry's device time at B = 4096 and kernel A's share, with the card's
 ``nvidia-smi`` name and power limit), a ``flights`` object (phase 16's
 rows, the card, its wall time), then one JSON object describing each
 kernel: its launches in its node phase and over phase 16's flights
-(``flight_launches``)
+(``flight_launches``) and over phase 17's paths (``slice_launches``, none
+for E, which lies on none of them)
 (kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
 conformance check of phase 11), its largest difference from its twin, its
 time through the wrapper (``ms``, CUDA events over back-to-back calls), its
@@ -198,6 +225,7 @@ repository beside it, it fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -977,27 +1005,23 @@ def kernel_wrappers() -> dict:
     return {name: getattr(cuda_kernels, name) for name in KERNELS}
 
 
-def drive_node(dev, config, frames, label: str, heights=None):
-    """Warm a node up, then drive it with ``frames`` (BGR 752x480 uint8) at
-    ``DT``, level, at ``HEIGHT`` (or frame i at ``heights[i]``), with
-    odometry at ``V_TRUE``.  Every
-    kernel's launch count is set to 0 just before the frames and read just
-    after.  Returns (node, published messages, launches per kernel,
-    per-frame latency in ms of the processed frames)."""
-    from mrs_optic_flow_tpu_torch.runtime.msgs import (
-        CameraInfo, Float64Stamped, ImageMsg, Imu, Odometry,
-    )
+def level_node(dev, config, published: list):
+    """A node on ``dev`` publishing into ``published``, with the camera of
+    ``render_frames`` and the identity mount."""
+    from mrs_optic_flow_tpu_torch.runtime.msgs import CameraInfo
     from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
 
-    published = []
     node = OpticFlowNode(config, device=dev, publish=lambda t, m: published.append((t, m)), log=say)
     node.on_camera_info(CameraInfo(k=[FX, 0, 376.0, 0, FY, 240.0, 0, 0, 1], d=[0.0] * 5))
     node.set_transforms((0.0, 0.0, 0.0, 1.0))
-    say(f"  {label}: warmup {node.warmup():.2f} s")
+    return node
 
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.LAUNCHES = 0
+
+def feed_node(node, frames, heights=None) -> None:
+    """Frame i with its IMU, odometry at ``V_TRUE`` and height (``HEIGHT``
+    or ``heights[i]``) at ``100 + i DT``, level."""
+    from mrs_optic_flow_tpu_torch.runtime.msgs import Float64Stamped, ImageMsg, Imu, Odometry
+
     for i, frame in enumerate(frames):
         t = 100.0 + i * DT
         node.on_imu(Imu(stamp=t, angular_velocity=(0.0, 0.0, 0.0),
@@ -1006,6 +1030,23 @@ def drive_node(dev, config, frames, label: str, heights=None):
                                   linear_velocity=(V_TRUE[0], V_TRUE[1], 0.0)))
         node.on_height(Float64Stamped(stamp=t, value=HEIGHT if heights is None else heights[i]))
         node.on_image(ImageMsg(stamp=t, data=frame))
+
+
+def drive_node(dev, config, frames, label: str, heights=None):
+    """Warm a node up, then drive it with ``frames`` (BGR 752x480 uint8) at
+    ``DT``, level, at ``HEIGHT`` (or frame i at ``heights[i]``), with
+    odometry at ``V_TRUE``.  Every
+    kernel's launch count is set to 0 just before the frames and read just
+    after.  Returns (node, published messages, launches per kernel,
+    per-frame latency in ms of the processed frames)."""
+    published = []
+    node = level_node(dev, config, published)
+    say(f"  {label}: warmup {node.warmup():.2f} s")
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.LAUNCHES = 0
+    feed_node(node, frames, heights)
     launches = {name: fn.LAUNCHES for name, fn in wrappers.items()}
 
     # raw frame to published twist; the first frame only primes the node
@@ -1888,6 +1929,7 @@ def reset_launches() -> dict:
     return wrappers
 
 
+@functools.lru_cache(maxsize=1)
 def serving_pairs() -> tuple:
     """Phase 5's texture as uint8 480² pairs, one a velocity of
     ``SERVING_V`` at ``HEIGHT`` and ``DT`` (content moved by ``-f v dt / h``,
@@ -3128,6 +3170,446 @@ def run_flights(dev) -> dict:
             "bag_twist_diff": bag_diff, "bridge_twist_diff": bridge_diff, "wall_s": wall}
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: OpticFlowCalc, the mesh, the filters and the profiler              #
+# --------------------------------------------------------------------------- #
+
+#: phase 17's sizes: pairs of ``sharded_flow_step`` (the bench point) and of
+#: the pipeline's steps, the shards of one card, fleet streams and ticks, the
+#: scale/rotation fleet's streams, ``ServingLoop``'s batch and requests, and
+#: the traced node's frames
+SLICE_BENCH_PAIRS = BENCH_BATCH
+SLICE_PIPE_PAIRS = 1024
+SLICE_SHARDS = 4
+SLICE_FLEET_STREAMS = FLEET_STREAMS
+SLICE_FLEET_TICKS = 5
+SLICE_SR_STREAMS = SR_FLEET_STREAMS
+SLICE_SERVING_BATCH = SERVING_BATCH
+SLICE_SERVING_REQUESTS = 1024
+SLICE_TRACED_FRAMES = 5
+SHARD_SHIFT_TOL = 1e-5  # px, sharded against unsharded
+#: m/s, sharded against unsharded twists: the bound of the JAX package's
+#: multi-chip dry run for the same comparison (``__graft_entry__.py``)
+SHARD_TRAN_TOL = 5e-3
+SHARD_DECODE_TOL = 1e-4  # scale and rotation [rad], sharded against unsharded
+#: the card's float32 filters against the CPU's: relative, or times the
+#: largest input component absolute (tests/test_torch_tran_rot_vvel.py)
+FILTER_TOL = 1e-6
+
+
+def shift_diff(a, b) -> float:
+    """Largest ``|a - b|`` over the finite entries; NaN where and only where
+    the other is NaN."""
+    a, b = (np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x, np.float64)
+            for x in (a, b))
+    check(a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b)), "NaN patterns differ")
+    return float(np.nan_to_num(np.abs(a - b), nan=0.0).max(initial=0.0))
+
+
+def add_launches(total: dict, wrappers: dict) -> dict:
+    """``wrappers``' counts, added into ``total``; returns the counts."""
+    got = {k: fn.LAUNCHES for k, fn in wrappers.items()}
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    return got
+
+
+def gray_crops(dev, frames) -> list:
+    """``render_frames``' BGR frames as the node's 480² float gray crops."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops.preprocess import center_crop, to_grayscale
+
+    return [center_crop(to_grayscale(torch.from_numpy(f).to(dev)), 480, 376).contiguous()
+            for f in frames]
+
+
+def slice_calc(dev, grays, total: dict) -> dict:
+    """(a) ``OpticFlowCalc`` over method 4 (kernel A), long range (A at the
+    downsampled 120 px), patch 60 (kernel D) and ``BlockMethod`` (kernel C):
+    each call against its engine's own step on the same frames, exactly for
+    A, within ``SHIFT_TOL`` for D and C; ``raw_output`` filled."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.models import (
+        BlockMethod, BlockMethodConfig, FftMethod, FftMethodConfig, OpticFlowCalc,
+    )
+
+    cases = [
+        ("method 4", lambda: FftMethod(FftMethodConfig(), device=dev), False,
+         "phase_correlate_frames", 0.0),
+        ("long range", lambda: FftMethod(FftMethodConfig(), device=dev), True,
+         "phase_correlate_frames", 0.0),
+        ("patch 60", lambda: FftMethod(FftMethodConfig(sample_point_size=60), device=dev), False,
+         "phase_correlate_fullfused", SHIFT_TOL),
+        ("method 3", lambda: BlockMethod(BlockMethodConfig(), device=dev), False, "sad_search",
+         SHIFT_TOL),
+    ]
+    out = {}
+    for label, make, long_range, kernel, tol in cases:
+        calc, ref = OpticFlowCalc(make()), make()
+        p = ref.num_cells if hasattr(ref, "num_cells") else ref.num_windows
+        wrappers = reset_launches()
+        got = []
+        for g in grays:
+            if long_range:
+                got.append((calc.process_image_long_range(g), None, None))
+            else:
+                raw = torch.full((p, 2), math.nan, device=dev)
+                got.append((calc.process_image(g, raw_output=raw), raw, calc.last_result.shifts_raw))
+        launches = add_launches(total, wrappers)
+        state, diff = ref.init_state(), 0.0
+        step = ref.step_long_range if long_range else ref.step
+        for g, (shifts, raw, raw_ref) in zip(grays, got):
+            state, res = step(state, g)
+            diff = max(diff, shift_diff(shifts, res.shifts))
+            if raw is not None:
+                check(shift_diff(raw, raw_ref) == 0.0, f"{label}: raw_output not filled")
+        check(diff <= tol, f"OpticFlowCalc {label}: shifts {diff} px from the engine's step")
+        if dev.type == "cuda":
+            n = launches[kernel]
+            check(n == len(grays) if kernel == "phase_correlate_frames" else n >= len(grays),
+                  f"OpticFlowCalc {label}: {n} {kernel} launches for {len(grays)} calls")
+        out[label] = {"max_shift_diff": diff, kernel: launches[kernel]}
+    return out
+
+
+def slice_mesh(dev, total: dict) -> dict:
+    """(b) ``sharded_flow_step`` at the bench point on one card and on
+    ``SLICE_SHARDS`` shards of it against ``step_batch``, timed; then
+    ``BatchPipeline(mesh=...)``'s ``step_pre`` (under sync-as-error) and
+    ``step_long_range`` against the unsharded pipeline with the same
+    generator."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.geometry.batched import get_rt_batch
+    from mrs_optic_flow_tpu_torch.models import FftMethod, FftMethodConfig
+    from mrs_optic_flow_tpu_torch.parallel import BatchPipeline, make_mesh, sharded_flow_step
+
+    cuda = dev.type == "cuda"
+    prev_np, curr_np, v = serving_pairs()
+    cls = torch.arange(SLICE_BENCH_PAIRS) % len(v)
+    prev = torch.from_numpy(prev_np).to(dev)[cls.to(dev)]
+    curr = torch.from_numpy(curr_np).to(dev)[cls.to(dev)]
+    eng = FftMethod(FftMethodConfig(), device=dev)
+    ref = eng.step_batch(prev, curr)
+    ref_speed = float(torch.linalg.norm(ref.shifts_raw, dim=-1).mean())
+    one = make_mesh() if cuda else make_mesh(device="cpu")
+    shards = make_mesh(SLICE_SHARDS, device="cuda:0" if cuda else "cpu")
+    check(one.size == (torch.cuda.device_count() if cuda else 1), f"make_mesh(): {one}")
+    out = {"step_batch_ms": time_cuda(lambda: eng.step_batch(prev, curr), 5) if cuda else math.nan}
+    for label, mesh in (("one card", one), (f"{SLICE_SHARDS} shards", shards)):
+        step = sharded_flow_step(eng, mesh)
+        wrappers = reset_launches()
+        shifts, speed = step(prev, curr)
+        n = add_launches(total, wrappers)["phase_correlate_frames"]
+        diff = shift_diff(shifts, ref.shifts)
+        check(diff <= SHARD_SHIFT_TOL, f"sharded_flow_step {label}: {diff} px from step_batch")
+        check(abs(float(speed) - ref_speed) <= 1e-6 * ref_speed, f"{label}: fleet mean speed")
+        if cuda:
+            check(n == mesh.size, f"sharded_flow_step {label}: {n} kernel A launches")
+        ms = time_cuda(lambda: step(prev, curr), 5) if cuda else math.nan
+        out[label] = {"shards": mesh.size, "launches": n, "max_shift_diff": diff, "ms": ms,
+                      "frame_pairs_per_s": SLICE_BENCH_PAIRS / ms * 1e3}
+    out["step_batch_frame_pairs_per_s"] = SLICE_BENCH_PAIRS / out["step_batch_ms"] * 1e3
+    del ref
+
+    b = SLICE_PIPE_PAIRS
+    prev, curr = prev[:b].contiguous(), curr[:b].contiguous()
+    truth = v[cls[:b].numpy()]
+    cam = np.array([[FX, 0, 240.0], [0, FY, 240.0], [0, 0, 1]], np.float32)
+    kw = dict(camera_matrix=cam, dist_coeffs=np.zeros(5, np.float32))
+    plain, sharded = BatchPipeline(**kw, device=dev), BatchPipeline(**kw, mesh=shards, device=dev)
+    heights, dts = torch.full((b,), HEIGHT, device=dev), torch.full((b,), DT, device=dev)
+    rates = torch.zeros((b, 4), device=dev)
+    rates[:, 3] = 1.0
+    c2b = rates[0].clone()
+    zeros = torch.zeros((b,), device=dev)
+    outs, lrs = [], []
+    for pipe in (plain, sharded):
+        k = SLICE_SHARDS
+        pipe.step_pre(prev[:k], curr[:k], heights[:k], dts[:k], rates[:k], c2b)  # warm-up
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        wrappers = reset_launches()
+        with no_host_sync(dev):
+            outs.append(pipe.step_pre(prev, curr, heights, dts, rates, c2b, generator=gen))
+        n = add_launches(total, wrappers)["phase_correlate_frames"] if pipe is sharded else None
+        wrappers = reset_launches()
+        lrs.append(pipe.step_long_range(prev, curr, heights, dts, zeros, zeros, 0.0))
+        n_lr = add_launches(total, wrappers)["phase_correlate_frames"] if pipe is sharded else None
+    if cuda:
+        check(n == SLICE_SHARDS and n_lr == SLICE_SHARDS, f"mesh pipeline: A launches {n}, {n_lr}")
+    u, s = outs
+    ok = s.ok.cpu().numpy()
+    check(np.array_equal(ok, u.ok.cpu().numpy()), "step_pre: ok differs sharded and unsharded")
+    d_shift, d_tran = shift_diff(s.shifts, u.shifts), shift_diff(s.tran, u.tran)
+    check(d_shift <= SHARD_SHIFT_TOL and d_tran <= SHARD_TRAN_TOL, f"step_pre: {d_shift}, {d_tran}")
+    emax = worst_err(s.tran.cpu().numpy(), truth, ok)
+    check(ok.mean() >= SERVING_OK_SHARE and emax <= TWIST_TOL, f"step_pre: {ok.mean()} ok, {emax}")
+    # the whole batch's draws, sliced a shard, give the inlier counts of the
+    # whole batch's geometry
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    gumbel = sharded._gumbel(None, gen, b)
+    geo = dict(frame_size=480, patch=120, ransac_iterations=sharded.ransac_iterations)
+
+    def rt(sl):
+        return get_rt_batch(u.shifts[sl], heights[sl], dts[sl], sharded.ul_x, sharded._cam, None, c2b,
+                            rates[sl], gumbel=gumbel[..., sl], **geo)
+
+    whole = rt(slice(None))
+    k = b // SLICE_SHARDS
+    parts = [rt(slice(i * k, (i + 1) * k)) for i in range(SLICE_SHARDS)]
+    check(torch.equal(whole.n_inliers, torch.cat([p.n_inliers for p in parts]))
+          and torch.equal(whole.ok, s.ok), "n_inliers or ok differ shard by shard")
+    lu, ls = lrs
+    lr_ok = ls.ok.cpu().numpy()
+    check(np.array_equal(lr_ok, lu.ok.cpu().numpy()), "step_long_range: ok differs")
+    lr_shift, lr_tran = shift_diff(ls.shifts, lu.shifts), shift_diff(ls.tran, lu.tran)
+    check(lr_shift <= SHARD_SHIFT_TOL and lr_tran <= SHARD_TRAN_TOL, f"long range {lr_shift}, {lr_tran}")
+    lr_err = worst_err(ls.tran.cpu().numpy(), truth, lr_ok)
+    check(lr_ok.mean() >= SERVING_OK_SHARE and lr_err <= LR_TWIST_TOL, f"long range {lr_err}")
+    out["pipeline"] = {"pairs": b, "ok_share": float(ok.mean()), "max_shift_diff": d_shift,
+                       "max_tran_diff": d_tran, "max_twist_err": emax, "long_range_shift_diff": lr_shift,
+                       "long_range_tran_diff": lr_tran, "long_range_twist_err": lr_err}
+    return out
+
+
+def slice_serving(dev, total: dict) -> dict:
+    """(c) ``FleetServer`` of BGR 752x480 streams, the fused scale/rotation
+    fleet and ``ServingLoop`` over a pipeline sharded ``SLICE_SHARDS`` ways
+    on the card, each against the unsharded one with the same seed."""
+    from oracle import smooth_random_image
+
+    from mrs_optic_flow_tpu_torch.models import ScaleRotationEstimator
+    from mrs_optic_flow_tpu_torch.parallel import BatchPipeline, make_mesh
+    from mrs_optic_flow_tpu_torch.runtime import FleetServer
+    from mrs_optic_flow_tpu_torch.runtime.serving import ServingLoop, ServingRequest
+
+    cuda = dev.type == "cuda"
+    mesh = make_mesh(SLICE_SHARDS, device="cuda:0" if cuda else "cpu")
+    out = {}
+
+    n = SLICE_FLEET_STREAMS
+    tex = np.clip(np.rint(smooth_random_image(np.random.default_rng(0), 1024, cutoff=0.25)), 0,
+                  255).astype(np.uint8)
+    kw = dict(camera_matrix=np.array([[FX, 0, 376.0], [0, FY, 240.0], [0, 0, 1]], np.float32),
+              dist_coeffs=np.zeros(5, np.float32), device=dev)
+    fleets = [FleetServer(BatchPipeline(**kw), n, seed=1),
+              FleetServer(BatchPipeline(**kw, mesh=mesh), n, seed=1)]
+    heights = np.array([FLEET_H[i % len(FLEET_H)] for i in range(n)])
+    diff = worst = 0.0
+    for t in range(SLICE_FLEET_TICKS):
+        frames = fleet_frames(tex, t, n)
+        ticks = []
+        for fleet in fleets:
+            wrappers = reset_launches()
+            ticks.append(fleet.tick(frames, np.full(n, t * DT), heights).materialize())
+            got = add_launches(total, wrappers) if fleet is fleets[1] else None
+            if t and cuda and got is not None:
+                check(got["phase_correlate_frames"] == SLICE_SHARDS, f"fleet tick {t}: {got}")
+        u, s = ticks
+        check(np.array_equal(u.ok, s.ok), f"fleet tick {t}: ok differs sharded and unsharded")
+        diff = max(diff, shift_diff(s.tran, u.tran))
+        worst = max(worst, worst_err(s.tran, fleet_truth(n, heights), s.ok))
+        check(t == 0 or s.ok.mean() >= SERVING_OK_SHARE, f"fleet tick {t}: {s.ok.mean()} ok")
+    check(diff <= SHARD_TRAN_TOL and worst <= TWIST_TOL, f"fleet: {diff} m/s apart, error {worst}")
+    out["fleet"] = {"streams": n, "ticks": SLICE_FLEET_TICKS, "max_tran_diff": diff,
+                    "max_twist_err": worst}
+
+    m = SLICE_SR_STREAMS
+    sr = ScaleRotationEstimator(device=dev)
+    kw_sq = dict(kw, camera_matrix=np.array([[FX, 0, 240.0], [0, FY, 240.0], [0, 0, 1]], np.float32))
+    fleets = [FleetServer(BatchPipeline(**kw_sq, scale_rotation=sr), m, seed=2),
+              FleetServer(BatchPipeline(**kw_sq, scale_rotation=sr, mesh=mesh), m, seed=2)]
+    check(all(f._sr_fused for f in fleets), "the scale/rotation leg is not fused")
+    steps = [SR_FLEET_STEPS[i % len(SR_FLEET_STEPS)] for i in range(m)]
+    seqs = [render_affine(3, deg, zoom, seed=i) for i, (deg, zoom) in enumerate(steps)]
+    sr_diff = sr_err = 0.0
+    for t in range(3):
+        frames = np.stack([q[t] for q in seqs])
+        ticks = []
+        for fleet in fleets:
+            wrappers = reset_launches()
+            ticks.append(fleet.tick(frames, np.full(m, t * DT), np.full(m, HEIGHT)).materialize())
+            got = add_launches(total, wrappers) if fleet is fleets[1] else None
+            if t and cuda and got is not None:
+                check(got["phase_correlate_frames"] == SLICE_SHARDS
+                      and got["peak_refine_raw"] == SLICE_SHARDS, f"scale/rotation tick {t}: {got}")
+        if t:
+            u, s = ticks
+            sr_diff = max(sr_diff, shift_diff(s.scale, u.scale), shift_diff(s.rotation, u.rotation))
+            sr_err = max(sr_err, float(np.abs(np.rad2deg(s.rotation) - [d for d, _ in steps]).max()))
+    check(sr_diff <= SHARD_DECODE_TOL and sr_err <= SR_ROT_TOL, f"scale/rotation: {sr_diff}, {sr_err}")
+    out["scale_rotation_fleet"] = {"streams": m, "max_decode_diff": sr_diff, "rot_err_deg": sr_err}
+
+    prev_np, curr_np, v = serving_pairs()
+    reqs = [ServingRequest(prev=prev_np[i % len(v)], curr=curr_np[i % len(v)], height=HEIGHT, dt=DT)
+            for i in range(SLICE_SERVING_REQUESTS)]
+    cam = kw_sq["camera_matrix"]
+    res = []
+    for mesh_arg in (None, mesh):
+        pipe = BatchPipeline(camera_matrix=cam, dist_coeffs=np.zeros(5, np.float32), mesh=mesh_arg,
+                             device=dev)
+        loop = ServingLoop(pipe, batch_size=SLICE_SERVING_BATCH, depth=2, seed=3)
+        wrappers = reset_launches()
+        res.append(list(loop.run(reqs)))
+        got = add_launches(total, wrappers) if mesh_arg is not None else None
+    batches = SLICE_SERVING_REQUESTS // SLICE_SERVING_BATCH
+    if cuda:
+        check(got["phase_correlate_frames"] == batches * SLICE_SHARDS, f"ServingLoop: {got}")
+    u, s = res
+    check(len(s) == SLICE_SERVING_REQUESTS and all(a.ok == b.ok for a, b in zip(s, u)),
+          "ServingLoop: ok differs sharded and unsharded")
+    loop_shift = max(shift_diff(a.shifts, b.shifts) for a, b in zip(s, u))
+    loop_tran = max(shift_diff(a.tran, b.tran) for a, b in zip(s, u))
+    check(loop_shift <= SHARD_SHIFT_TOL and loop_tran <= SHARD_TRAN_TOL,
+          f"ServingLoop: {loop_shift} px, {loop_tran} m/s")
+    out["serving_loop"] = {"requests": len(s), "max_shift_diff": loop_shift, "max_tran_diff": loop_tran}
+    return out
+
+
+def slice_filters(dev, grays, total: dict) -> dict:
+    """(d) ``estimate_tran_rot_vvel`` and the allsac helpers on the card
+    against the CPU: ``tests/test_filters.py``'s translation, rotation and
+    scale cases, and the 3x3 grid of window shifts of phase 5's first pair
+    (method 4 at patch 160, kernel A)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.filters import (
+        allsac_mean_1d, bound_abs_mask, bound_radius_mask, estimate_tran_rot_vvel, rotate_2d,
+    )
+    from mrs_optic_flow_tpu_torch.models import FftMethod, FftMethodConfig
+
+    def column_major(r):  # cell -> (vx, vy) in the flipped-y frame -> the [9, 2] input
+        return np.array([[r[k][0], -r[k][1]] for k in (1, 4, 7, 2, 5, 8, 3, 6, 9)], np.float32)
+
+    c, z = 0.5, 0.25
+    eng = FftMethod(FftMethodConfig(sample_point_size=160), device=dev)
+    wrappers = reset_launches()
+    state, _ = eng.step(eng.init_state(), grays[0])
+    _, res = eng.step(state, grays[1])
+    add_launches(total, wrappers)
+    # field order i + 3j (x fastest) to the column-major r1 r4 r7 r2 ...
+    grid = res.shifts.reshape(3, 3, 2).transpose(0, 1).reshape(9, 2)
+    cases = {
+        "translation": (np.tile(np.float32([4.0, -2.0]), (9, 1)),
+                        (40.0, 400.0, 400.0, 2.0, 100.0, 0.1, 5.0, 5.0)),
+        "rotation": (column_major({1: (c, c), 9: (-c, -c), 3: (c, -c), 7: (-c, c), 4: (0, c),
+                                   6: (0, -c), 2: (c, 0), 8: (-c, 0), 5: (0, 0)}),
+                     (1.0, 400.0, 400.0, 2.0, 100.0, 1.0, 5.0, 5.0)),
+        "scale": (column_major({1: (-z, z), 9: (z, -z), 3: (z, z), 7: (-z, -z), 4: (-z, 0),
+                                6: (z, 0), 2: (0, z), 8: (0, -z), 5: (0, 0)}),
+                  (1.0, 400.0, 400.0, 2.0, 100.0, 1.0, 5.0, 5.0)),
+        "phase 5 grid": (grid.cpu().numpy(), (160.0, FX, FY, HEIGHT, 0.01, DT, 5.0, 5.0)),
+    }
+    worst, grid_out = 0.0, None
+    for label, (vec, args) in cases.items():
+        on_card = estimate_tran_rot_vvel(torch.from_numpy(vec).to(dev), *args)
+        on_cpu = estimate_tran_rot_vvel(torch.from_numpy(vec), *args)
+        scale = max(1.0, float(np.nanmax(np.abs(vec))))
+        for a, b in zip(on_card, on_cpu):
+            d = shift_diff(a, b)
+            check(d <= FILTER_TOL * max(scale, float(b.abs().nan_to_num().max())),
+                  f"tran_rot_vvel {label}: card and CPU {d} apart")
+            worst = max(worst, d)
+        if label == "phase 5 grid":
+            grid_out = [x.cpu().numpy().tolist() for x in on_card]
+            mean = np.nanmean(vec, axis=0)
+            check(np.abs(np.asarray(grid_out[0]) - mean).max() < 0.05
+                  and abs(grid_out[1]) < 0.05 and abs(grid_out[2]) < 0.05,
+                  f"phase 5 grid: tran {grid_out[0]}, rot {grid_out[1]}, vvel {grid_out[2]} "
+                  f"(mean shift {mean})")
+    vals = torch.tensor([1.0, 1.05, 0.98, 5.0, 1.01])
+    pts = torch.tensor([[3.0, 4.0], [0.1, 0.1], [np.nan, 1.0]])
+    helpers = {
+        "allsac_mean_1d": lambda d: allsac_mean_1d(vals.to(d), torch.ones(5, dtype=torch.bool, device=d),
+                                                   0.2),
+        "rotate_2d": lambda d: (rotate_2d(pts.to(d), 0.7),),
+        "bound_abs_mask": lambda d: (bound_abs_mask(pts.to(d), 5.1), bound_abs_mask(vals.to(d), 1.0)),
+        "bound_radius_mask": lambda d: (bound_radius_mask(pts.to(d), [3.0, 3.5], 1.0),),
+    }
+    for label, fn in helpers.items():
+        for a, b in zip(fn(dev), fn(torch.device("cpu"))):
+            d = shift_diff(a.float(), b.float())
+            check(d <= FILTER_TOL * 5.0, f"{label}: card and CPU {d} apart")
+            worst = max(worst, d)
+    mean, chosen = allsac_mean_1d(vals.to(dev), torch.ones(5, dtype=torch.bool, device=dev), 0.2)
+    check(int(chosen) == 4 and abs(float(mean) - np.mean([1.0, 1.05, 0.98, 1.01])) < 1e-6, "allsac_1d")
+    return {"max_card_cpu_diff": worst, "phase5_grid": grid_out}
+
+
+def slice_profiler(dev, frames, total: dict) -> dict:
+    """(e) The method-4 node with ``Profiler(event_log_path, trace_dir)``
+    under ``start_device_trace``/``stop_device_trace``: the exported trace
+    holds kernel A's CUDA kernel and one range a frame program, the event
+    log one line a routine call."""
+    import tempfile
+
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from mrs_optic_flow_tpu_torch.runtime.profiler import Profiler
+
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        node = level_node(dev, NodeConfig(), [])
+        node.warmup()
+        log = pathlib.Path(tmp) / "events.jsonl"
+        node.profiler = prof = Profiler("OpticFlow", event_log_path=str(log),
+                                        trace_dir=str(pathlib.Path(tmp) / "trace"))
+        wrappers = reset_launches()
+        prof.start_device_trace()
+        feed_node(node, frames[:SLICE_TRACED_FRAMES])
+        path = prof.stop_device_trace()
+        prof.close()
+        n_a = add_launches(total, wrappers)["phase_correlate_frames"]
+        lines = [json.loads(x) for x in log.read_text().splitlines()]
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = [e.get("name") or "" for e in events]
+    counts = {k: st["count"] for k, st in prof.stats().items()}
+    logged = {k: sum(1 for e in lines if e["routine"] == k) for k in counts}
+    check(logged == counts and len(lines) == sum(counts.values()), f"event log {logged}, stats {counts}")
+    frames_run = counts.get("frame_program", 0)
+    # the host's range; on the card the trace also mirrors it as a gpu_user_annotation
+    ranges = sum(1 for e in events if e.get("name") == "frame_program"
+                 and e.get("cat") == "user_annotation")
+    a_in_trace = sum(1 for x in names if A_KERNEL.search(x))
+    check(frames_run == SLICE_TRACED_FRAMES - 1 and ranges == frames_run,
+          f"{frames_run} frame programs, {ranges} ranges in the trace")
+    if dev.type == "cuda":
+        check(n_a == frames_run and a_in_trace >= 1, f"kernel A: {n_a} launches, {a_in_trace} in the trace")
+    return {"log_lines": len(lines), "frame_program_ranges": ranges, "kernel_a_in_trace": a_in_trace,
+            "kernel_a_launches": n_a}
+
+
+def run_slice(dev) -> dict:
+    """Phase 17.  Returns its line's object, with ``launches``: each
+    kernel's launches on the paths that phase 17 drives (not in the
+    comparisons), kernel E none."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    frames = render_frames(N_FRAMES)
+    grays = gray_crops(dev, frames)
+    parts = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        got = fn()
+        parts[name] = time.perf_counter() - t
+        return got
+
+    out = {"calc": part("calc", lambda: slice_calc(dev, grays, total)),
+           "mesh": part("mesh", lambda: slice_mesh(dev, total))}
+    out.update(part("serving", lambda: slice_serving(dev, total)))
+    out["filters"] = part("filters", lambda: slice_filters(dev, grays, total))
+    out["profiler"] = part("profiler", lambda: slice_profiler(dev, frames, total))
+    out["launches"] = total
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def twist_diff(pub_a, pub_b) -> float:
     """Largest difference [m/s] between two runs' twists, topic by topic and
     stamp by stamp (x and y; both runs must publish the same stamps)."""
@@ -3196,6 +3678,13 @@ def main() -> int:
     check_tf32(dev)
     serving = run_serving(dev)
     flights = run_flights(dev)
+    slice_out = run_slice(dev)
+    mesh = slice_out["mesh"]
+    say(f"[17 slice] {slice_out['seconds']:.1f} s; frame-pairs/s at B = {SLICE_BENCH_PAIRS}: step_batch "
+        f"{mesh['step_batch_frame_pairs_per_s']:.1f}, sharded_flow_step one card "
+        f"{mesh['one card']['frame_pairs_per_s']:.1f}, {SLICE_SHARDS} shards "
+        f"{mesh[f'{SLICE_SHARDS} shards']['frame_pairs_per_s']:.1f}; "
+        + json.dumps({k: v for k, v in slice_out.items() if k != "seconds"}))
 
     # each kernel at the shape its row times: (launches, error, ms through
     # the wrapper, own ms, plain ms, library ms or None, library own ms or
@@ -3226,6 +3715,7 @@ def main() -> int:
         "replaces": KERNELS[name][1],
         "launches": launches,
         "flight_launches": flights["launches"][name],
+        "slice_launches": slice_out["launches"][name],
         "max_abs_err": err,
         "ms": ms,
         "own_ms": own,

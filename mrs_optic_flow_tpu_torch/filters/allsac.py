@@ -1,7 +1,8 @@
-"""Consensus means of the block-matching node path (``src/utilityFunctions.cpp``).
+"""Consensus means and bounding filters (``src/utilityFunctions.cpp``).
 
-Port of ``point_mean``, ``allsac_mean`` and ``ransac_mean`` from
-:mod:`mrs_optic_flow_tpu.filters.allsac`.  "Allsac" is the reference's
+Port of :mod:`mrs_optic_flow_tpu.filters.allsac`: ``rotate_2d``,
+``point_mean``, ``allsac_mean`` and its scalar variant ``allsac_mean_1d``,
+``ransac_mean``, ``bound_abs_mask`` and ``bound_radius_mask``.  "Allsac" is the reference's
 deterministic RANSAC: it scores every pair of points
 (``src/utilityFunctions.cpp:58-95``).  All functions take a validity mask
 instead of removing NaN points (``removeNanPoints``, ``:245-263``), so the
@@ -17,6 +18,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+def rotate_2d(pts: torch.Tensor, alpha) -> torch.Tensor:
+    """Rotate ``[..., 2]`` points by ``alpha`` [rad] (``src/utilityFunctions.cpp:4-22``)."""
+    alpha = torch.as_tensor(alpha, dtype=pts.dtype, device=pts.device)
+    c, s = torch.cos(alpha), torch.sin(alpha)
+    x, y = pts[..., 0], pts[..., 1]
+    return torch.stack([x * c - y * s, x * s + y * c], dim=-1)
 
 
 def point_mean(pts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -53,6 +62,31 @@ def allsac_mean(
     few = n_valid <= 2
     mean = torch.where(few, point_mean(pts_f, valid), consensus)
     return mean, torch.where(few, n_valid, counts[best])
+
+
+def allsac_mean_1d(
+    vals: torch.Tensor, valid: torch.Tensor, threshold_radius: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scalar variant of :func:`allsac_mean` (``src/utilityFunctions.cpp:105-142``):
+    every pair's midpoint counts the valid values within ``threshold_radius``
+    (absolute distance), the first best pair in scan order wins.  With <= 2
+    valid values the plain mean, and with none NaN (the reference's
+    ``calcMean`` of an empty vector is 0/0).  Returns ``(mean [], chosen_count)``."""
+    n = vals.shape[0]
+    v = torch.where(valid, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+    mid = 0.5 * (v[:, None] + v[None, :])
+    upper = torch.ones((n, n), dtype=torch.bool, device=vals.device).triu()
+    pair_ok = valid[:, None] & valid[None, :] & upper
+    members = ((mid[:, :, None] - v[None, None, :]).abs() < threshold_radius) & valid[None, None, :]
+    counts = torch.where(pair_ok, members.sum(dim=-1), -1).reshape(-1)
+    best = torch.argmax(counts)  # the first maximum in scan order
+    w = members.reshape(n * n, n)[best].to(v.dtype)
+    consensus = (v * w).sum() / torch.clamp(w.sum(), min=1.0)
+    n_valid = valid.sum()
+    fallback = torch.where(n_valid > 0, (v * valid).sum() / torch.clamp(n_valid, min=1),
+                           torch.full_like(consensus, float("nan")))
+    few = n_valid <= 2
+    return torch.where(few, fallback, consensus), torch.where(few, n_valid, counts[best])
 
 
 def draw_indices(
@@ -95,3 +129,18 @@ def ransac_mean(
     best = torch.argmax(members.sum(dim=-1))
     consensus = point_mean(pts_f, members[best])
     return torch.where(valid.sum() <= num_of_chosen, point_mean(pts_f, valid), consensus)
+
+
+def bound_abs_mask(pts: torch.Tensor, bound) -> torch.Tensor:
+    """``|p| < bound`` (``getOnlyInAbsBound``, ``src/utilityFunctions.cpp:218-231``):
+    the absolute value of ``[n]`` scalars, or the norm of ``[..., 2]`` points."""
+    if pts.ndim == 1:
+        return pts.abs() < bound
+    return (pts * pts).sum(dim=-1) < bound * bound
+
+
+def bound_radius_mask(pts: torch.Tensor, expected, radius) -> torch.Tensor:
+    """Distance from ``expected`` below ``radius``
+    (``getOnlyInRadiusFromExpected``, ``src/utilityFunctions.cpp:265-281``)."""
+    expected = torch.as_tensor(expected, dtype=pts.dtype, device=pts.device)
+    return ((pts - expected) ** 2).sum(dim=-1) < radius * radius

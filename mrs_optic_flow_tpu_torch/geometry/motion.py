@@ -26,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from mrs_optic_flow_tpu_torch.geometry.homography import decompose_homography, find_homography_ransac
@@ -42,6 +43,17 @@ from mrs_optic_flow_tpu_torch.geometry.undistort import undistort_xy
 #: ratio-2 long-range mutual-agreement gate in px, ``LONGRANGE_INLIER_THRESHOLD``
 #: (``src/optic_flow.cpp:34``, used at ``:456`` with a strict ``<``)
 LONGRANGE_INLIER_THRESHOLD = 15.0
+
+
+def grid_centers(frame_size: int, patch: int) -> np.ndarray:
+    """Patch-grid centre pixels ``[P, 2]`` float32 in field order ``i +
+    q*j``, ``xi = i*S + S/2`` as getRT builds them
+    (``src/optic_flow.cpp:538-540``); :func:`grid_centers_xy` makes the
+    same points on a device."""
+    q = frame_size // patch
+    c = np.arange(q) * patch + patch // 2
+    xs, ys = np.meshgrid(c, c)
+    return np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1).astype(np.float32)
 
 
 def grid_centers_xy(frame_size: int, patch: int, device, dtype) -> tuple:

@@ -1,8 +1,14 @@
 """Flow engines and the scale/rotation estimator: method 4
 (:mod:`.fft_method`), methods 3 and 5 (:mod:`.block_method`,
-:mod:`.fast_spaced_bm`) and :mod:`.scale_rotation`."""
+:mod:`.fast_spaced_bm`) and :mod:`.scale_rotation`, and the reference's
+stateful interface over any of them (:class:`~.base.OpticFlowCalc`)."""
 
-from mrs_optic_flow_tpu_torch.models.base import FlowEngine, FlowResult, FlowState  # noqa: F401
+from mrs_optic_flow_tpu_torch.models.base import (  # noqa: F401
+    FlowEngine,
+    FlowResult,
+    FlowState,
+    OpticFlowCalc,
+)
 from mrs_optic_flow_tpu_torch.models.block_method import BlockMethod, BlockMethodConfig  # noqa: F401
 from mrs_optic_flow_tpu_torch.models.fast_spaced_bm import FastSpacedBM, FastSpacedBMConfig  # noqa: F401
 from mrs_optic_flow_tpu_torch.models.fft_method import FftMethod, FftMethodConfig  # noqa: F401

@@ -11,8 +11,11 @@ issues its launches on the current stream and reads nothing back, so a
 caller can keep several batches in flight (:class:`~..runtime.serving.
 ServingLoop`).
 
-The JAX package's ``mesh``/``axis_name`` shard the batch over TPU chips;
-the port runs on one card and refuses a mesh.
+With a ``mesh`` (:func:`~.sharding.make_mesh`) every step splits the batch
+over the mesh's shards and runs the chain once a shard on its device, then
+gathers the results onto the mesh's first device.  The RANSAC draws are
+made once for the whole batch and sliced, so a sharded step equals the
+unsharded one with the same generator.
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mrs_optic_flow_tpu_torch.geometry.batched import get_rt_batch
+from mrs_optic_flow_tpu_torch.geometry.batched import draw_gumbel, get_rt_batch
 from mrs_optic_flow_tpu_torch.geometry.motion import get_2dt_batch
 from mrs_optic_flow_tpu_torch.models.fft_method import FftMethod, FftMethodConfig
 from mrs_optic_flow_tpu_torch.ops.preprocess import center_crop, to_grayscale
-from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE
+from mrs_optic_flow_tpu_torch.parallel.sharding import Mesh, Sharded, gather, scatter
+from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE, same_device
 
 
 #: the ``torch.profiler`` range around the batched getRT of every short-range step
@@ -70,15 +74,20 @@ class BatchPipeline:
         half_spectrum: bool = True,
         bands_per_step: Optional[int] = None,
         mxu_passes: bool | int = True,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         axis_name: str = "data",
         scale_rotation=None,
         device=DEFAULT_DEVICE,
     ):
         """The JAX pipeline's arguments, on ``device`` (the card unless the
         caller names another).  ``half_spectrum``, ``bands_per_step`` and
-        ``mxu_passes`` go to :class:`FftMethodConfig`, which ignores them;
-        ``mesh`` must be None (``axis_name`` is then unused).
+        ``mxu_passes`` go to :class:`FftMethodConfig`, which ignores them.
+
+        ``mesh``: a :class:`~.sharding.Mesh` to shard every step's batch
+        over (B must divide evenly); the pipeline then runs on the mesh's
+        first device, where inputs that are not sharded are scattered from
+        and every output is gathered, and ``device`` must be of its type.
+        ``axis_name`` names the mesh axis, as in the JAX pipeline.
 
         ``scale_rotation``: an optional
         :class:`~mrs_optic_flow_tpu_torch.models.scale_rotation.ScaleRotationEstimator`
@@ -89,8 +98,13 @@ class BatchPipeline:
         stream a tick, the fleet's shape).  Match:
         ``src/scaleRotationEstimator.cpp:34-148``."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the port runs on one card; the JAX package's batch sharding is not ported")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.sharding.Mesh (make_mesh), got {mesh!r}")
+            if torch.device(device).type != mesh.first.type:
+                raise ValueError(f"device {device!r} and a mesh on {mesh.first}")
+            device = mesh.first
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.engine = FftMethod(
             FftMethodConfig(
                 frame_size=frame_size,
@@ -118,7 +132,7 @@ class BatchPipeline:
         if scale_rotation is not None:
             if scale_rotation.config.resolution != self.frame_size:
                 raise ValueError("scale_rotation.resolution must equal the pipeline frame size")
-            if scale_rotation.device != self.device:
+            if not same_device(scale_rotation.device, self.device):
                 raise ValueError(f"scale_rotation runs on {scale_rotation.device}, the pipeline "
                                  f"on {self.device}")
         self.scale_rotation = scale_rotation
@@ -126,20 +140,33 @@ class BatchPipeline:
         # a distortion-free camera skips the undistortion iterations
         self._dist = (torch.from_numpy(self.dist_coeffs).to(self.device)
                       if np.any(self.dist_coeffs) else None)
+        #: the shards every step runs on: the mesh's, or the pipeline's device
+        self._shards = mesh if mesh is not None else Mesh([self.device])
+        #: the camera constants on each shard's device, made once
+        self._consts = {self.device: (self._cam, self._dist)}
 
-    def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
-        """``x`` on the pipeline's device; a device tensor of that dtype as
-        it is (no copy)."""
-        return torch.as_tensor(x, dtype=dtype).to(self.device)
+    def _camera_on(self, device: torch.device):
+        """``(camera matrix, distortion or None)`` on ``device``."""
+        if device not in self._consts:
+            self._consts[device] = (self._cam.to(device),
+                                    None if self._dist is None else self._dist.to(device))
+        return self._consts[device]
 
-    def preprocess(self, raw) -> torch.Tensor:
-        """Raw ``[B, H, W]`` gray or ``[B, H, W, 3]`` BGR frames -> the
-        ``[B, F, F]`` centre crops, contiguous.  Gray frames keep their dtype
-        (uint8 goes to the kernel as it is); BGR becomes float32 gray."""
+    def _preprocess_on(self, raw, device) -> torch.Tensor:
         raw = raw if isinstance(raw, torch.Tensor) else torch.as_tensor(np.asarray(raw))
-        raw = raw.to(self.device)
+        raw = raw.to(device)
         g = to_grayscale(raw) if raw.ndim == 4 else raw
         return center_crop(g, self.frame_size, int(self.crop_cx)).contiguous()
+
+    def preprocess(self, raw):
+        """Raw ``[B, H, W]`` gray or ``[B, H, W, 3]`` BGR frames -> the
+        ``[B, F, F]`` centre crops, contiguous.  Gray frames keep their dtype
+        (uint8 goes to the kernel as it is); BGR becomes float32 gray.  A
+        :class:`~.sharding.Sharded` batch is cropped shard by shard on its
+        devices and stays sharded."""
+        if isinstance(raw, Sharded):
+            return Sharded([self._preprocess_on(r, r.device) for r in raw.shards], raw.mesh)
+        return self._preprocess_on(raw, self.device)
 
     def logpolar_carry(self, frames: torch.Tensor) -> torch.Tensor:
         """The log-polar images of preprocessed frames: the initial (or
@@ -148,40 +175,70 @@ class BatchPipeline:
             raise ValueError("logpolar_carry needs a pipeline built with scale_rotation")
         return self.scale_rotation.logpolar_batch(frames)
 
-    def _core(self, prev, curr, heights, dts, rate_quats, c2b, gumbel, generator, sr_pair):
-        res = self.engine.step_batch(prev, curr)
-        # a profiler range: a trace attributes the geometry's kernels to it
-        with torch.profiler.record_function(GEOMETRY_RANGE):
-            rt = get_rt_batch(
-                res.shifts, self._tensor(heights), self._tensor(dts), self.ul_x, self._cam,
-                self._dist, self._tensor(c2b), self._tensor(rate_quats),
-                frame_size=self.frame_size,
-                patch=self.sample_point_size,
-                shifted_pts_thr=self.shifted_pts_thr,
-                ransac_iterations=self.ransac_iterations,
-                gumbel=gumbel,
-                generator=generator,
-            )
-        # fleet statistic: nanmean, so one dead stream's NaN raw shifts do
-        # not blind it
-        fleet = torch.nanmean(torch.linalg.norm(res.shifts_raw, dim=-1))
-        scale, rotation = sr_pair
-        if scale is None:
-            b = res.shifts.shape[0]
-            scale = torch.full((b,), math.nan, device=self.device)
-            rotation = torch.full((b,), math.nan, device=self.device)
-        return PipelineOutput(
-            ok=rt.ok, tran=rt.tran, rot=rt.rot, shifts=res.shifts,
-            fleet_mean_speed=fleet, scale=scale, rotation=rotation,
-        )
+    def _gumbel(self, gumbel, generator, b: int) -> torch.Tensor:
+        """The whole batch's RANSAC draws ``[I, P, B]``: ``gumbel`` as
+        given, or drawn once from ``generator`` on the pipeline's device."""
+        shape = (self.ransac_iterations, self.engine.num_windows, b)
+        if gumbel is None:
+            return draw_gumbel(*shape, self.device, generator)
+        if tuple(gumbel.shape) != shape:
+            raise ValueError(f"gumbel has shape {tuple(gumbel.shape)}, expected {shape}")
+        return gumbel
+
+    def _run(self, prev, curr, heights, dts, rate_quats, c2b, gumbel, generator, sr_mode=None,
+             prev_lp=None):
+        """The chain once a shard, gathered on the first shard's device.
+        ``sr_mode``: None, ``"pairs"`` (both frames resampled) or
+        ``"carried"`` (``prev_lp`` carried).  Returns ``(PipelineOutput,
+        curr_lp or None)``."""
+        shards = self._shards
+        prevs, currs = scatter(prev, shards), scatter(curr, shards)
+        hs, ds = scatter(heights, shards, torch.float32), scatter(dts, shards, torch.float32)
+        rs = scatter(rate_quats, shards, torch.float32)
+        lps = scatter(prev_lp, shards) if sr_mode == "carried" else [None] * shards.size
+        b = sum(p.shape[0] for p in prevs)
+        k = b // shards.size
+        outs, speeds, lp_cs = [], [], []
+        for i, dev in enumerate(shards.devices):
+            scale = rotation = None
+            if sr_mode == "pairs":
+                res = self.scale_rotation.step_batch(prevs[i], currs[i])
+                scale, rotation = res.scale, res.rotation
+            elif sr_mode == "carried":
+                lp_c, res = self.scale_rotation.step_batch_carried(lps[i], currs[i])
+                lp_cs.append(lp_c)
+                scale, rotation = res.scale, res.rotation
+            cam, dist = self._camera_on(dev)
+            flow = self.engine.step_batch(prevs[i], currs[i])
+            # a profiler range: a trace attributes the geometry's kernels to it
+            with torch.profiler.record_function(GEOMETRY_RANGE):
+                if i == 0:  # the whole batch's draws, made once
+                    gumbel = self._gumbel(gumbel, generator, b)
+                rt = get_rt_batch(
+                    flow.shifts, hs[i], ds[i], self.ul_x, cam, dist,
+                    torch.as_tensor(c2b, dtype=torch.float32).to(dev), rs[i],
+                    frame_size=self.frame_size,
+                    patch=self.sample_point_size,
+                    shifted_pts_thr=self.shifted_pts_thr,
+                    ransac_iterations=self.ransac_iterations,
+                    gumbel=gumbel[..., i * k:(i + 1) * k].to(dev),
+                )
+            if scale is None:
+                scale = torch.full((k,), math.nan, device=dev)
+                rotation = torch.full((k,), math.nan, device=dev)
+            outs.append((rt.ok, rt.tran, rt.rot, flow.shifts, scale, rotation))
+            speeds.append(torch.linalg.norm(flow.shifts_raw, dim=-1))
+        ok, tran, rot, shifts, scale, rotation = (gather(parts, shards) for parts in zip(*outs))
+        # fleet statistic: nanmean over the whole batch, so one dead stream's
+        # NaN raw shifts do not blind it
+        out = PipelineOutput(ok=ok, tran=tran, rot=rot, shifts=shifts,
+                             fleet_mean_speed=torch.nanmean(gather(speeds, shards)),
+                             scale=scale, rotation=rotation)
+        return out, (gather(lp_cs, shards) if lp_cs else None)
 
     def _step(self, prev, curr, heights, dts, rate_quats, c2b, gumbel, generator) -> PipelineOutput:
-        sr_pair = (None, None)
-        if self.scale_rotation is not None:
-            # stateless pairs: both frames resampled
-            res = self.scale_rotation.step_batch(prev, curr)
-            sr_pair = (res.scale, res.rotation)
-        return self._core(prev, curr, heights, dts, rate_quats, c2b, gumbel, generator, sr_pair)
+        sr_mode = "pairs" if self.scale_rotation is not None else None
+        return self._run(prev, curr, heights, dts, rate_quats, c2b, gumbel, generator, sr_mode)[0]
 
     def step(self, prev_raw, curr_raw, heights, dts, rate_quats, c2b, *,
              gumbel: Optional[torch.Tensor] = None,
@@ -210,21 +267,24 @@ class BatchPipeline:
         call's ``prev_lp``."""
         if self.scale_rotation is None:
             raise ValueError("step_pre_carried needs a pipeline built with scale_rotation")
-        lp_c, res = self.scale_rotation.step_batch_carried(prev_lp, curr)
-        out = self._core(prev, curr, heights, dts, rate_quats, c2b, gumbel, generator,
-                         (res.scale, res.rotation))
-        return out, lp_c
+        return self._run(prev, curr, heights, dts, rate_quats, c2b, gumbel, generator, "carried",
+                         prev_lp)
 
     def _step_long_range(self, prev, curr, heights, dts, roll_rates, pitch_rates, cam_yaw):
-        res = self.engine.step_batch_long_range(prev, curr)
-        rt = get_2dt_batch(
-            res.shifts, self._tensor(heights), self._tensor(dts), self._cam,
-            self._tensor(roll_rates), self._tensor(pitch_rates), float(cam_yaw),
-            long_range_ratio=self.engine.config.long_range_ratio,
-        )
-        fleet = torch.nanmean(torch.linalg.norm(res.shifts_raw, dim=-1))
-        return LongRangeOutput(ok=rt.ok, tran=rt.tran, tran_diff=rt.tran_diff,
-                               shifts=res.shifts, fleet_mean_speed=fleet)
+        shards = self._shards
+        parts = [scatter(prev, shards), scatter(curr, shards)]
+        parts += [scatter(x, shards, torch.float32) for x in (heights, dts, roll_rates, pitch_rates)]
+        outs, speeds = [], []
+        for i, dev in enumerate(shards.devices):
+            p, c, h, d, rr, pr = (x[i] for x in parts)
+            flow = self.engine.step_batch_long_range(p, c)
+            rt = get_2dt_batch(flow.shifts, h, d, self._camera_on(dev)[0], rr, pr, float(cam_yaw),
+                               long_range_ratio=self.engine.config.long_range_ratio)
+            outs.append((rt.ok, rt.tran, rt.tran_diff, flow.shifts))
+            speeds.append(torch.linalg.norm(flow.shifts_raw, dim=-1))
+        ok, tran, tran_diff, shifts = (gather(x, shards) for x in zip(*outs))
+        return LongRangeOutput(ok=ok, tran=tran, tran_diff=tran_diff, shifts=shifts,
+                               fleet_mean_speed=torch.nanmean(gather(speeds, shards)))
 
     def step_long_range(self, prev_raw, curr_raw, heights, dts, roll_rates, pitch_rates,
                         cam_yaw: float) -> LongRangeOutput:

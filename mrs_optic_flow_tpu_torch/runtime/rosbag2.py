@@ -103,15 +103,54 @@ def _unquote(text: str) -> str:
     return text
 
 
+def _strip_comment(line: str) -> str:
+    """``line`` without its ``#`` comment: a ``#`` at the start or after
+    whitespace, outside a quoted scalar (a quoted ``'a #1.db3'`` is a name,
+    as ``yaml.safe_load`` reads it; a quote opens a scalar only at its
+    start, so the ``'`` of a plain ``it's.db3`` does not)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote is None:
+            if ch in "'\"" and (i == 0 or line[i - 1] in " \t[,"):
+                quote = ch
+            elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+                return line[:i].rstrip()
+        elif ch == quote and not (quote == '"' and line[i - 1] == "\\"):
+            quote = None
+    return line.rstrip()
+
+
+def _split_flow(body: str) -> List[str]:
+    """The items of a flow list's body (between ``[`` and ``]``): split at
+    the commas outside quotes, each unquoted."""
+    items, quote, start = [], None, 0
+    for i, ch in enumerate(body):
+        if quote is None and ch in "'\"" and (i == 0 or body[i - 1] in " \t[,"):
+            quote = ch
+        elif ch == quote:
+            quote = None
+        elif quote is None and ch == ",":
+            items.append(body[start:i])
+            start = i + 1
+    items.append(body[start:])
+    return [_unquote(v) for v in items if v.strip()]
+
+
 def _relative_file_paths(text: str) -> List[str]:
     """``rosbag2_bagfile_information.relative_file_paths`` of a
     ``metadata.yaml``, read without a YAML library: a block list (items at
     the key's indentation or deeper) or a flow list of plain or quoted
-    names.  ``[]`` when the text has no such list."""
-    in_info, key_indent, paths = False, None, []
+    names, on one line or split over several up to its ``]``.  ``[]`` when
+    the text has no such list."""
+    in_info, key_indent, paths, flow = False, None, [], None
     for raw in text.splitlines():
-        line = re.sub(r"\s+#.*", "", raw).rstrip()
-        if not line.strip() or line.lstrip().startswith("#"):
+        line = _strip_comment(raw)
+        if flow is not None:
+            flow += " " + line.strip()
+            if flow.endswith("]"):
+                return _split_flow(flow[1:-1])
+            continue
+        if not line.strip():
             continue
         indent = len(line) - len(line.lstrip(" "))
         item = line.strip()
@@ -127,7 +166,10 @@ def _relative_file_paths(text: str) -> List[str]:
         if in_info and sep and key == "relative_file_paths":
             value = value.strip()
             if value.startswith("[") and value.endswith("]"):
-                return [_unquote(v) for v in value[1:-1].split(",") if v.strip()]
+                return _split_flow(value[1:-1])
+            if value.startswith("["):
+                flow = value  # a flow list continued on the next lines
+                continue
             if value:
                 return []
             key_indent = indent

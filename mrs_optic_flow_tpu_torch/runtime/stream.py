@@ -116,7 +116,7 @@ class SyntheticScene:
         t -= t.min()
         self.texture = (t / t.max() * 255.0).astype(np.float32)
         self._ts = texture_size
-        self._grid = None
+        self._grid = None  # (key, rays) of the last intrinsics rendered
 
     def camera_info(self) -> CameraInfo:
         return CameraInfo(
@@ -140,16 +140,21 @@ class SyntheticScene:
 
     def _pixel_rays(self):
         """Every pixel's undistorted normalized coordinates ``(xn, yn)``: the
-        same for every frame, so computed once (the distortion model's
-        inversion takes most of a distorted render)."""
-        if self._grid is None:
+        same for every frame of the same intrinsics, so computed once for
+        them (the distortion model's inversion takes most of a distorted
+        render).  The cache is keyed on every public attribute the rays
+        depend on, so a scene whose size, intrinsics or distortion is set
+        anew renders with its new rays, as the JAX scene does."""
+        key = (self.width, self.height_px, self.fx, self.fy, self.cx, self.cy,
+               tuple(np.asarray(self.dist_coeffs, np.float64).ravel().tolist()))
+        if self._grid is None or self._grid[0] != key:
             uu, vv = np.meshgrid(np.arange(self.width), np.arange(self.height_px))
             xd = (uu - self.cx) / self.fx
             yd = (vv - self.cy) / self.fy
-            if np.any(self.dist_coeffs != 0.0):
+            if np.any(np.asarray(self.dist_coeffs) != 0.0):
                 xd, yd = self._undistort_np(xd, yd)
-            self._grid = (xd, yd)
-        return self._grid
+            self._grid = (key, (xd, yd))
+        return self._grid[1]
 
     def render(self, cam_xy: Tuple[float, float]) -> np.ndarray:
         """Grayscale frame for a camera at ground position ``cam_xy`` [m]."""

@@ -18,3 +18,16 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
             f"device {str(dev)!r}: no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name the same device, a CUDA device without
+    an index being the current one (``"cuda"`` and ``"cuda:0"`` are the
+    same place on a host whose current card is 0)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)

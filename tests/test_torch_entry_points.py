@@ -81,7 +81,12 @@ def test_resolve_device_without_a_card(device, ok, monkeypatch):
 
 
 def test_batch_pipeline_refuses_a_mesh():
-    """The JAX package's mesh sharding is not ported: a mesh raises instead
-    of being ignored."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A pipeline refuses a mesh it cannot run on instead of ignoring it: an
+    object that is not a ``Mesh``, and a mesh of CPU shards under the
+    card's default device (which would run on the CPU)."""
+    from mrs_optic_flow_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(TypeError, match="mesh"):
         _pipeline(mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh"):
+        _pipeline(mesh=make_mesh(2, device="cpu"))

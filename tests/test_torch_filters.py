@@ -88,3 +88,67 @@ def test_ransac_draws_from_a_generator_pick_valid_points():
     gen.manual_seed(1)
     mean = tas.ransac_mean(torch.from_numpy(pts), torch.from_numpy(valid_np), 0.25, generator=gen)
     np.testing.assert_allclose(mean.numpy(), [0.8, -0.5], atol=0.05)  # the inlier cluster
+
+
+# ---------------------------------------------------------------------------
+# the scalar allsac, the bounds and rotate_2d (tests/test_filters.py's cases
+# on the port, and parity with the JAX functions on seeded inputs)
+# ---------------------------------------------------------------------------
+
+
+def test_allsac_1d_case():
+    vals = np.array([1.0, 1.05, 0.98, 5.0, 1.01], np.float32)
+    mean, chosen = tas.allsac_mean_1d(torch.from_numpy(vals), torch.ones(5, dtype=torch.bool), 0.2)
+    assert int(chosen) == 4
+    assert abs(float(mean) - np.mean([1.0, 1.05, 0.98, 1.01])) < 1e-6
+
+
+def test_allsac_1d_all_invalid_is_nan():
+    mean, chosen = tas.allsac_mean_1d(torch.full((5,), float("nan")),
+                                      torch.zeros(5, dtype=torch.bool), 0.2)
+    assert np.isnan(float(mean)) and int(chosen) == 0
+
+
+@pytest.mark.parametrize("n_valid,thr", [(9, 0.2), (9, 0.01), (2, 0.2), (1, 0.2), (0, 0.2), (6, 50.0)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_allsac_1d_matches_jax(n_valid, thr, seed):
+    pts, valid = _points(10 + seed, n_valid=n_valid)
+    vals = np.where(valid, pts[:, 0], np.nan).astype(np.float32)
+    (jm, jc), (tm, tc) = run_both(lambda v, m: jas.allsac_mean_1d(v, m, jnp.float32(thr)),
+                                  lambda v, m: tas.allsac_mean_1d(v, m, thr), vals, valid)
+    np.testing.assert_allclose(tm, jm, rtol=TOL, atol=TOL, equal_nan=True)
+    assert int(tc) == int(jc)
+
+
+def test_bounds_and_rotate_case():
+    pts = torch.tensor([[3.0, 4.0], [0.1, 0.1]])
+    assert tas.bound_abs_mask(pts, 5.1).tolist() == [True, True]
+    assert tas.bound_abs_mask(pts, 4.9).tolist() == [False, True]
+    r = tas.rotate_2d(torch.tensor([1.0, 0.0]), np.float32(np.pi / 2)).numpy()
+    np.testing.assert_allclose(r, [0.0, 1.0], atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bounds_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 2, (12, 2)).astype(np.float32)
+    vals = rng.normal(0, 2, 12).astype(np.float32)
+    vals[3] = pts[2, 0] = np.nan
+    for bound in (0.5, 2.0, 4.0):
+        j, t = run_both(lambda p: jas.bound_abs_mask(p, bound), lambda p: tas.bound_abs_mask(p, bound), pts)
+        np.testing.assert_array_equal(t, j)
+        j, t = run_both(lambda v: jas.bound_abs_mask(v, bound), lambda v: tas.bound_abs_mask(v, bound), vals)
+        np.testing.assert_array_equal(t, j)
+        j, t = run_both(lambda p, e: jas.bound_radius_mask(p, e, bound),
+                        lambda p, e: tas.bound_radius_mask(p, e, bound), pts, np.float32([0.5, -1.0]))
+        np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rotate_2d_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 3, (7, 2)).astype(np.float32)
+    for alpha in (0.0, 0.3, -2.1, np.pi):
+        j, t = run_both(lambda p: jas.rotate_2d(p, jnp.float32(alpha)),
+                        lambda p: tas.rotate_2d(p, np.float32(alpha)), pts)
+        np.testing.assert_allclose(t, j, rtol=TOL, atol=TOL * np.abs(pts).max())

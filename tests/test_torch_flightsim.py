@@ -5,7 +5,8 @@ and closed-loop flights through the port's node on the CPU.
 - Renders (``SyntheticScene.render``/``render_pose``, ``FlightSimulator
   .render`` with a mount) and event streams (``events_into``,
   ``trajectory_events``) bit-identical on a few frames at 752x480 and
-  160x160.
+  160x160, and again after a rendered scene's intrinsics or distortion
+  are set anew (repair F10).
 - ``evaluate_flight`` on the JAX tests' hand-built published lists gives the
   same ``FlightReport``.
 - The mini flight (``test_flight_mini_smoke``'s profile, 160 px renders,
@@ -90,6 +91,30 @@ def test_scene_renders_bit_identical(name):
     mat = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
     np.testing.assert_array_equal(ours.render_pose((0.5, 0.5), mat, height=2.2),
                                   theirs.render_pose((0.5, 0.5), mat, height=2.2))
+
+
+@pytest.mark.parametrize("changes", [
+    {"dist_coeffs": [0.2, 0.0, 0.0, 0.0, 0.0]},
+    {"dist_coeffs": [0.2, 0.0, 0.0, 0.0, 0.0], "fx": 380.0},
+    {"fx": 380.0, "cy": 250.0},
+    # cx and cy default to the centre at construction; the scene keeps them
+    {"width": 320, "height_px": 288, "cx": 376.0, "cy": 240.0},
+])
+def test_scene_renders_anew_after_its_intrinsics_change(changes):
+    """Repair F10: a scene rendered once, then given other intrinsics or
+    distortion, renders as a JAX scene built with them, bit for bit (the
+    ray cache is keyed on every attribute the rays depend on)."""
+    ours = port_stream.SyntheticScene(seed=7, texture_cutoff=0.3)
+    ours.render((0.37, -1.2))
+    ours.render_pose((0.2, 0.1), (0.1, -0.05, 0.3))
+    for name, value in changes.items():
+        setattr(ours, name, value)
+    kw = {"seed": 7, "texture_cutoff": 0.3}
+    kw.update(changes)
+    theirs = jax_stream.SyntheticScene(**kw)
+    np.testing.assert_array_equal(ours.render((0.37, -1.2)), theirs.render((0.37, -1.2)))
+    np.testing.assert_array_equal(ours.render_pose((0.2, 0.1), (0.1, -0.05, 0.3), height=1.7),
+                                  theirs.render_pose((0.2, 0.1), (0.1, -0.05, 0.3), height=1.7))
 
 
 def jax_to_port(msg):

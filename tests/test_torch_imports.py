@@ -40,6 +40,12 @@ PORT_MODULES = [
     "mrs_optic_flow_tpu_torch.runtime.rosbag",
     "mrs_optic_flow_tpu_torch.runtime.rosbag2",
     "mrs_optic_flow_tpu_torch.__main__",
+    "mrs_optic_flow_tpu_torch.models",
+    "mrs_optic_flow_tpu_torch.geometry",
+    "mrs_optic_flow_tpu_torch.filters",
+    "mrs_optic_flow_tpu_torch.filters.tran_rot_vvel",
+    "mrs_optic_flow_tpu_torch.parallel",
+    "mrs_optic_flow_tpu_torch.parallel.sharding",
 ]
 
 

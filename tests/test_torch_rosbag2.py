@@ -12,7 +12,8 @@ serializer, sqlite3 storage writer and MCAP writer, imported):
   (chunked and bare) to equal ``(t, topic, type, raw)`` tuples;
 - the split-bag order of ``metadata.yaml`` holds with ``yaml`` blocked (the
   card has no pyyaml), and the port's reader of ``relative_file_paths``
-  agrees with ``yaml.safe_load`` on block, flow, quoted and commented lists.
+  agrees with ``yaml.safe_load`` on block, flow, quoted and commented lists,
+  a flow list split over lines and a ``#`` inside a quoted name (repair F11).
 """
 
 import os
@@ -273,6 +274,14 @@ METADATA_CASES = {
                                     "    - b_0.db3  # first\n    - \"a_1.db3\"\n"
                                     "  files:\n    - path: a_1.db3\n"),
     "other top-level key": "other:\n  relative_file_paths:\n    - a_1.db3\n    - b_0.db3\n",
+    "flow, split over lines": ("rosbag2_bagfile_information:\n"
+                               "  relative_file_paths: [b_0.db3,  # first\n"
+                               "    'a_1.db3']\n  version: 5\n"),
+    "block, quoted hash": ("rosbag2_bagfile_information:\n  relative_file_paths:\n"
+                           "    - 'gone #1.db3'\n    - \"b_0.db3\"  # first\n    - a_1.db3\n"),
+    "block, apostrophe in a plain name": ("rosbag2_bagfile_information:\n  relative_file_paths:\n"
+                                          "    - it's_2.db3  # gone\n    - b_0.db3\n"
+                                          "    - a_1.db3\n"),
     "empty map": "{}",
     "no list": "rosbag2_bagfile_information:\n  version: 5\n",
 }
