@@ -197,7 +197,28 @@ Phases, each printing a line when it finishes:
     of phase 5's first pair; (e) the method-4 node with a ``Profiler``
     logging events and tracing on 5 frames: kernel A's CUDA kernel and one
     ``frame_program`` range a frame program in the exported trace, one log
-    line a routine call.  It prints one line.
+    line a routine call.  It prints one line;
+18. the measurement and tuning layer (``mrs_optic_flow_tpu_torch/utils/
+    benchlib.py`` and the ``scripts/*_torch.py`` built on it) at short
+    settings, in a process of its own (a long process's profiler traces
+    drop device events): (a) ``measure_node_latency`` on the default node
+    (10 frames);
+    (b) ``tune_frames_kernel_torch``: kernel A built with ``PCF_THREADS``
+    128, 256 (the default, bit for bit equal to the shipped kernel) and 512
+    (the builds started in phase 2), each within SHIFT_TOL of its twin and
+    the oracle, timed at B = 1 and 4096; (c) ``tune_sad_kernel_torch``:
+    ``BlockMethod.step`` with kernel C and with the plain search, and C
+    built with the default tile (bit for bit the shipped kernel) and one
+    other, both exact against the twin; (d) ``tune_scale_rotation_torch``
+    at 4 streams; (e) ``profile_geometry_torch`` at 64 and 256 RANSAC
+    iterations, B = 4096, with its bound; (f) ``accuracy_report_torch`` on 8
+    pairs, A, D and E within SHIFT_TOL of the oracle; (g)
+    ``verify_sr_fused_torch``: the scale/rotation decodes, the chain's
+    device time with and without it, the chain issued with host
+    synchronisation made an error and one readback a node frame; (h) the
+    method-3 and method-5 nodes: one device-to-host copy a frame (repair
+    F13).  Every JSON line the scripts print is checked for its keys and
+    for finite numbers; it prints one line.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
@@ -236,6 +257,21 @@ import time
 
 import numpy as np
 
+from mrs_optic_flow_tpu_torch.ops.cuda_kernels import ptxas_lines
+from mrs_optic_flow_tpu_torch.utils.benchlib import (  # noqa: F401  (WORK, pc_flops: the tests read them here)
+    A_KERNEL,
+    WORK,
+    bound,
+    card_name,
+    device_split,
+    no_host_sync,
+    own_by_kernel,
+    own_ms,
+    pc_flops,
+    time_cuda,
+    timed_calls,
+)
+
 REPO = pathlib.Path(__file__).resolve().parent
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -268,49 +304,6 @@ LR_TWIST_TOL = 0.25  # m/s, the long-range budget of tests/test_node.py
 #: phase 12's heights: short range above 1.0 m, long range below, both ways
 LR_HEIGHTS = [1.5] * 6 + [0.8] * 7 + [1.4] * 7
 CONFORMANCE_TOL = 0.05  # px, ops/conformance.py
-#: published peaks of one H100 SXM at 700 W: float32 outside the tensor cores, HBM3
-H100_FP32_FLOPS = 67e12
-H100_BYTES_PER_S = 3.35e12
-
-
-def pc_flops(n: int) -> float:
-    """Operations of one FFT phase correlation of a real ``n x n`` pair:
-    5 N log2 N (N = n^2) for the forward complex transform of both patches
-    packed as one, half that for the inverse, and 12 a bin of the half
-    spectrum ``n (n/2 + 1)`` for the cross-power."""
-    return 7.5 * n * n * math.log2(n * n) + 12 * n * (n // 2 + 1)
-
-
-#: kernel -> (operations, bytes) of its function at a shape: each input
-#: byte read once, each output byte written once (12 B of shift and maxval
-#: a pair or window)
-WORK = {
-    # b frame pairs of q x q windows of n px, itemsize bytes a pixel
-    "phase_correlate_frames": lambda b, n, q, itemsize: (
-        b * q * q * pc_flops(n), 2 * b * (q * n) ** 2 * itemsize + 12 * b * q * q),
-    # p surfaces of n x n float32: one comparison an element
-    "peak_refine_raw": lambda p, n: (p * n * n, 4 * p * n * n + 12 * p),
-    # g cells of s x s blocks, radius r: subtract, absolute value, add a
-    # pixel and shift; float32 blocks and regions in, float32 maps out
-    "sad_search": lambda g, s, r: (
-        3 * g * (2 * r + 1) ** 2 * s * s,
-        4 * g * (s * s + (s + 2 * r) ** 2 + (2 * r + 1) ** 2)),
-    # p pairs of n x n patches
-    "phase_correlate_fullfused": lambda p, n, itemsize: (
-        p * pc_flops(n), 2 * p * n * n * itemsize + 12 * p),
-    "phase_correlate_fused": lambda p, n, itemsize: (
-        p * pc_flops(n), 2 * p * n * n * itemsize + 12 * p),
-}
-
-
-def bound(name: str, **shape) -> tuple:
-    """(least milliseconds the card could take for kernel ``name``'s work at
-    ``shape``, "operations" or "bytes", whichever bounds it)."""
-    ops, nbytes = WORK[name](**shape)
-    t_ops, t_bytes = ops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def say(msg: str) -> None:
     print(msg, flush=True)
 
@@ -318,60 +311,6 @@ def say(msg: str) -> None:
 def check(ok, what) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def time_cuda(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs, by CUDA events,
-    after one warm-up run; a host readback closes the window."""
-    import torch
-
-    out = fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    stop.record()
-    float(out[0].float().sum().item())  # host readback of the last result
-    return start.elapsed_time(stop) / reps
-
-
-def own_by_kernel(fn, reps: int) -> dict:
-    """Device time of one ``fn()`` call by kernel name, ``{name: (launches a
-    call, ms a call)}``: for each kernel that ``torch.profiler`` records over
-    ``reps`` calls (after a warm-up call), its launches a call and the median
-    of its durations times them.  It leaves out the host's time to issue the
-    launches and the gaps between them; the median keeps a launch that
-    waited on the card's clock out."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    durations: dict = {}
-    for _ in range(3):  # a trace that came back without device events is taken again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.events():
-            # a profiler range's span on the card is not a kernel
-            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
-                durations.setdefault(e.name, []).append(e.self_device_time_total)
-        if durations:
-            break
-    check(durations, "the profiler recorded no kernel")
-    out = {}
-    for name, d in durations.items():
-        launches = max(1, round(len(d) / reps))
-        out[name] = (launches, float(np.median(d)) * launches / 1e3)
-    return out
-
-
-def own_ms(fn, reps: int) -> float:
-    """Device time of one ``fn()`` call: ``own_by_kernel``'s times, summed."""
-    return sum(ms for _, ms in own_by_kernel(fn, reps).values())
 
 
 #: ``--baseline NAME=PATH``: kernel name -> the library built from PATH
@@ -1811,22 +1750,6 @@ def check_route_constants() -> None:
         f"shared memory and scratch match for n = 1..480")
 
 
-def ptxas_lines(log: str) -> list:
-    """The register, shared-memory and spill lines of a ``-Xptxas=-v`` log,
-    each after its kernel's template argument (``m=15``) where it has one."""
-    import re
-
-    lines, entry = [], ""
-    for line in log.splitlines():
-        m = re.search(r"entry function '([^']+)'", line)
-        if m:
-            arg = re.search(r"ILi(\d+)E", m.group(1))
-            entry = f"m={arg.group(1)}: " if arg else ""
-        elif "registers" in line or "spill" in line:
-            lines.append(entry + line.split(":", 1)[-1].strip())
-    return lines
-
-
 def compare_kernel_a(dev) -> None:
     """Phase 4, with ``--baseline phase_correlate_frames=PATH``: kernel A
     from ``csrc/`` against PATH, another source of kernel A with the same C
@@ -1896,32 +1819,6 @@ LR_FLEET_TICKS = 8
 SR_FLEET_STREAMS = 16
 SR_FLEET_STEPS = [(2.0, 1.02), (-1.5, 1 / 1.02), (1.0, 1.01), (-2.5, 1.0)]  # (deg, zoom) a tick
 SR_FUSED_TOL = 1e-4
-#: kernel A's own kernel in a profile
-A_KERNEL = re.compile(r"phase_correlate_frames_kernel")
-
-
-def no_host_sync(dev):
-    """A block in which any host synchronisation on the card raises
-    (``torch.cuda.set_sync_debug_mode("error")``)."""
-    import contextlib
-
-    import torch
-
-    @contextlib.contextmanager
-    def block():
-        if dev.type != "cuda":
-            yield
-            return
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
-    return block()
-
-
 def reset_launches() -> dict:
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
@@ -1951,67 +1848,6 @@ def worst_err(tran: np.ndarray, truth: np.ndarray, ok: np.ndarray) -> float:
     """Largest ``|v - truth|`` in x or y over the ok rows (0 with none)."""
     err = np.abs(tran[:, :2] - truth).max(axis=1)[ok]
     return float(err.max()) if err.size else 0.0
-
-
-def timed_calls(fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` with one call in flight: each call's
-    CUDA events, closed by a host readback of its result before the next."""
-    import torch
-
-    fn()[0].cpu()
-    times = []
-    for _ in range(reps):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        stop.record()
-        out[0].cpu()  # host readback
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
-
-
-def device_split(fn, wall_ms: float, reps: int = 2) -> dict:
-    """Device time of one ``fn()`` call (a pipeline step) from one
-    ``torch.profiler`` trace of ``reps`` calls: every kernel's duration
-    summed, kernel A's own kernel, the geometry (every kernel launched inside
-    the pipeline's ``GEOMETRY_RANGE``) and the rest (gating, casts, copies);
-    launches a call; the device's idle share against ``wall_ms``, the call's
-    wall time.  Kernel A's time is the median of its launches that the trace
-    holds, once a call (the wrapper counts the calls' launches): in this
-    script's process phase 15's traces hold one of two A launches, a fresh
-    process's hold both, and A's work does not depend on the data."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from mrs_optic_flow_tpu_torch.parallel.pipeline import GEOMETRY_RANGE
-
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    a = kernel_wrappers()["phase_correlate_frames"]
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a trace that came back without kernel A is taken again
-        a.LAUNCHES = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.events()
-        kernels = [e for e in events if e.device_type == cuda and not e.is_user_annotation]
-        a_traced = [e.self_device_time_total for e in kernels if A_KERNEL.search(e.name)]
-        if a_traced:
-            break
-    ranges = [e for e in events if e.device_type == cpu and e.name == GEOMETRY_RANGE]
-    check(a_traced and a.LAUNCHES == reps and len(ranges) == reps,
-          f"the trace holds {len(a_traced)} of kernel A's {a.LAUNCHES} launches and {len(ranges)} "
-          f"geometry ranges, for {reps} calls")
-    others = [e for e in kernels if not A_KERNEL.search(e.name)]
-    a_ms = float(np.median(a_traced)) / 1e3
-    total = sum(e.self_device_time_total for e in others) / reps / 1e3 + a_ms
-    geo = sum(e.device_time_total for e in ranges) / reps / 1e3
-    check(0 < geo < total, f"geometry {geo} ms of {total} ms")
-    return {"device_ms": total, "kernel_a_ms": a_ms, "geometry_ms": geo, "rest_ms": total - a_ms - geo,
-            "launches": round(len(others) / reps) + 1, "kernel_a_in_trace": len(a_traced),
-            "kernel_a_share": a_ms / total, "idle_share": max(0.0, 1.0 - total / wall_ms)}
 
 
 def check_pipeline_batch(dev, pipe, prev, curr, truth, gen) -> dict:
@@ -3610,6 +3446,203 @@ def run_slice(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the measurement and tuning layer                                   #
+# --------------------------------------------------------------------------- #
+
+#: kernel A's variants (PCF_THREADS); 256 is the source's default
+TOOLS_A_THREADS = (128, 256, 512)
+#: kernel C's variants (SAD_TI, SAD_TJ, SAD_WARPS); the first is the default
+TOOLS_C_TILES = ((2, 11, 8), (2, 8, 8))
+TOOLS_GEOMETRY_SWEEP = (64, 256)
+TOOLS_SR_STREAMS = 4
+TOOLS_ACCURACY_PAIRS = 8
+TOOLS_NODE_FRAMES = 10
+#: keys each script's lines must carry, by metric
+TOOLS_KEYS = {
+    "phase_correlate_frames_threads": ("threads", "batch", "max_err_twin_px", "max_err_oracle_px",
+                                       "bit_equal", "ms", "own_ms", "frame_pairs_per_s", "rate_min",
+                                       "rate_max", "window_rates", "bound_ms", "bound_share",
+                                       "library_ms", "blocks_per_sm", "card"),
+    "sad_block_method_ms_per_frame": ("kernel", "plain", "library", "card"),
+    "sad_search_tile": ("tile", "geometry", "built", "exact", "bit_equal", "geometry_mirrors_library",
+                        "ms", "own_ms", "bound_ms", "bound_share", "card"),
+    "scale_rotation_lanczos4_480_ms_per_frame": ("step", "batch_carried", "ignored", "card"),
+    "get_rt_batch": ("ransac_iterations", "wall_ms", "device_ms", "kernels", "idle_share", "bound_ms",
+                     "bound_by", "bound_materialized_ms", "ops", "bytes", "card"),
+    "flow_accuracy_px": ("route", "max_vs_truth_px", "mean_vs_truth_px", "max_vs_oracle_px", "card"),
+    "sr_node_decodes": ("rotating", "hovering", "ok", "card"),
+    "sr_chain": ("without_sr", "with_sr", "sr_leg", "chain_without_host_sync", "node", "ok", "card"),
+}
+
+
+def start_tool_builds() -> dict:
+    """Phase 18's variant builds, started beside phase 2's: ``{"a": ...,
+    "c": ...}``, for :func:`run_tools_apart`."""
+    from scripts import tune_frames_kernel_torch as tf
+    from scripts import tune_sad_kernel_torch as ts
+
+    return {"a": tf.start_builds(TOOLS_A_THREADS), "c": ts.start_builds(TOOLS_C_TILES)}
+
+
+#: phase 18's process may take this long [s]
+TOOLS_TIMEOUT_S = 300
+
+
+def run_tools_apart(jobs: dict) -> dict:
+    """Phase 18 in a process of its own (:func:`tools_process`), after its
+    variant builds: in one long process ``torch.profiler``'s traces drop
+    device events (phase 15's hold one of two A launches), and after phase
+    17 a trace of 200 A launches came back empty three times in a row.  The
+    process prints its lines to this one's standard output.  Returns its
+    line's object."""
+    import tempfile
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
+
+    built = {"a": {str(t): r for t, r in ck.finish_variants(jobs["a"]).items()},
+             "c": {"x".join(map(str, t)): r for t, r in ck.finish_variants(jobs["c"]).items()}}
+    with tempfile.TemporaryDirectory(dir=ck.BUILD_DIR) as tmp:
+        io = pathlib.Path(tmp)
+        (io / "built.json").write_text(json.dumps(built))
+        code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/tests']; "
+                "import chip_smoke; chip_smoke.tools_process(sys.argv[2])")
+        sys.stdout.flush()
+        proc = subprocess.run([sys.executable, "-c", code, str(REPO), tmp], cwd=REPO,
+                              timeout=TOOLS_TIMEOUT_S)
+        check(proc.returncode == 0, f"phase 18's process exited {proc.returncode}")
+        return json.loads((io / "out.json").read_text())
+
+
+def tools_process(io_dir: str) -> None:
+    """Phase 18's process: the variant builds' results from
+    ``built.json`` in ``io_dir``, :func:`run_tools` on the card, its object
+    into ``out.json``."""
+    import torch
+
+    io = pathlib.Path(io_dir)
+    built = json.loads((io / "built.json").read_text())
+    built = {"a": {int(t): r for t, r in built["a"].items()},
+             "c": {tuple(int(v) for v in k.split("x")): r for k, r in built["c"].items()}}
+    out = run_tools(torch.device("cuda"), built)
+    (io / "out.json").write_text(json.dumps(out))
+
+
+def finite_values(x, where: str) -> None:
+    """Every number in ``x`` (nested dicts and lists) finite, none null."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            finite_values(v, f"{where}.{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            finite_values(v, f"{where}[{i}]")
+    else:
+        check(x is not None and (not isinstance(x, float) or math.isfinite(x)), f"{where} = {x}")
+
+
+def check_tool_rows(rows: list, label: str) -> None:
+    check(rows, f"{label}: no line")
+    for row in rows:
+        if row.get("route") == "summary":
+            check(row["ok"], f"{label}: {row}")
+            continue
+        keys = TOOLS_KEYS[row["metric"]]
+        missing = [k for k in keys if k not in row or row[k] is None]
+        check(not missing, f"{label}: {row['metric']} lacks {missing}: {row}")
+        finite_values({k: row[k] for k in keys}, f"{label}.{row['metric']}")
+
+
+def run_tools(dev, built: dict) -> dict:
+    """Phase 18, given its variant builds' results (``{"a": {threads:
+    result}, "c": {tile: result}}``, ``cuda_kernels.finish_variants``).
+    Returns its line's object."""
+    from mrs_optic_flow_tpu_torch.utils import benchlib
+    from scripts import accuracy_report_torch as acc
+    from scripts import profile_geometry_torch as pg
+    from scripts import tune_frames_kernel_torch as tf
+    from scripts import tune_sad_kernel_torch as ts
+    from scripts import tune_scale_rotation_torch as tsr
+    from scripts import verify_sr_fused_torch as vsr
+
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+
+    def part(name, module, argv, **kw):
+        t = time.perf_counter()
+        rows = []
+        ok = module.run(module.parse_args(argv), rows.append, **kw)
+        seconds[name] = time.perf_counter() - t
+        for row in rows:
+            say(f"  {name}: {json.dumps(row)}")
+        check(ok, f"{name}: a check of the script failed")
+        check_tool_rows(rows, name)
+        return rows
+
+    t = time.perf_counter()
+    node = benchlib.measure_node_latency(TOOLS_NODE_FRAMES, warmup=3, n_distinct=8, device=dev)
+    seconds["node_latency"] = time.perf_counter() - t
+    finite_values(node, "measure_node_latency")
+    out["node_latency"] = node
+
+    threads = ",".join(map(str, TOOLS_A_THREADS))
+    rows = part("tune_frames", tf, ["--threads", threads, "--batches", f"1,{BENCH_BATCH}", "--iters", "2"],
+                built=built["a"])
+    check(len(rows) == 2 * len(TOOLS_A_THREADS), f"{len(rows)} kernel A variant lines")
+    for r in rows:
+        check(max(r["max_err_twin_px"], r["max_err_oracle_px"]) <= SHIFT_TOL, f"kernel A variant {r}")
+    check(all(r["bit_equal"] for r in rows if r["threads"] == 256),
+          "kernel A built with the default PCF_THREADS differs from the shipped kernel")
+    out["kernel_a"] = {f"{r['threads']}x{r['batch']}": {k: r[k] for k in ("own_ms", "ms", "frame_pairs_per_s",
+                                                                          "bound_share", "bit_equal")}
+                       for r in rows}
+
+    tiles = ",".join("x".join(map(str, t)) for t in TOOLS_C_TILES)
+    rows = part("tune_sad", ts, ["--engines", "block_method", "--k", "6", "--reps", "2", "--tiles", tiles],
+                built=built["c"])
+    variants = [r for r in rows if r["metric"] == "sad_search_tile"]
+    check(len(variants) == len(TOOLS_C_TILES) and all(r["exact"] for r in variants),
+          "kernel C variants against the twin")
+    check(all(r["bit_equal"] for r in variants if r["shipped"]),
+          "kernel C built with the default tile differs from the shipped kernel")
+    out["kernel_c"] = {"x".join(map(str, r["tile"])): {k: r[k] for k in ("own_ms", "ms", "bound_share", "bit_equal")}
+                       for r in variants}
+
+    rows = part("tune_scale_rotation", tsr, ["--configs", "lanczos4_480", "--streams", str(TOOLS_SR_STREAMS),
+                                             "--k", "6", "--reps", "2"])
+    out["scale_rotation"] = {"step": rows[0]["step"], "batch_carried": rows[0]["batch_carried"]}
+
+    rows = part("profile_geometry", pg, ["--reps", "3"], sweep=list(TOOLS_GEOMETRY_SWEEP), batch=BENCH_BATCH)
+    out["geometry"] = {r["ransac_iterations"]: {k: r[k] for k in ("wall_ms", "device_ms", "bound_ms", "bound_by",
+                                                                    "bound_materialized_ms", "idle_share")}
+                       for r in rows}
+
+    rows = part("accuracy", acc, ["--pairs", str(TOOLS_ACCURACY_PAIRS), "--kernel-tol", str(SHIFT_TOL)])
+    out["accuracy"] = {r["route"]: r["max_vs_oracle_px"] for r in rows}
+
+    rows = part("verify_sr", vsr, ["--frames", "4", "--k", "4", "--reps", "2"])
+    out["verify_sr"] = {"sr_leg": rows[1]["sr_leg"], "node": rows[1]["node"]}
+
+    # repair F13: the methods-3 and -5 nodes read their frame back once
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from mrs_optic_flow_tpu_torch.runtime.msgs import ImageMsg
+
+    t = time.perf_counter()
+    frames = render_frames(4)
+    out["readbacks"] = {}
+    for method in (3, 5):
+        node = level_node(dev, NodeConfig(method=method), [])
+        feed_node(node, frames[:2])
+        msgs = iter([ImageMsg(stamp=100.0 + DT * i, data=frames[i]) for i in (2, 3)])
+        prof = benchlib.profile_calls(lambda: node.on_image(next(msgs)), 2)
+        check(prof["readbacks"] == 1, f"method {method}: {prof['readbacks']} device-to-host copies a frame")
+        out["readbacks"][f"method {method}"] = prof["readbacks"]
+    seconds["readbacks"] = time.perf_counter() - t
+
+    out["part_seconds"] = seconds
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def twist_diff(pub_a, pub_b) -> float:
     """Largest difference [m/s] between two runs' twists, topic by topic and
     stamp by stamp (x and y; both runs must publish the same stamps)."""
@@ -3640,10 +3673,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "tests"))
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name()
     say(smi)
     check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision")
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are enabled")
@@ -3651,6 +3681,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
+    tool_jobs = start_tool_builds()  # phase 18's variants, compiled beside the kernels
     logs = cuda_kernels.build()
     for name, log in logs.items():
         cuda_kernels.load_library(name)
@@ -3685,6 +3716,8 @@ def main() -> int:
         f"{mesh['one card']['frame_pairs_per_s']:.1f}, {SLICE_SHARDS} shards "
         f"{mesh[f'{SLICE_SHARDS} shards']['frame_pairs_per_s']:.1f}; "
         + json.dumps({k: v for k, v in slice_out.items() if k != "seconds"}))
+    tools = run_tools_apart(tool_jobs)
+    say(f"[18 tools] {tools['seconds']:.1f} s; " + json.dumps({k: v for k, v in tools.items() if k != "seconds"}))
 
     # each kernel at the shape its row times: (launches, error, ms through
     # the wrapper, own ms, plain ms, library ms or None, library own ms or

@@ -93,8 +93,15 @@ namespace {
 
 // 256 threads a block: 512 (one block an SM at n = 120, for its registers)
 // and a persistent grid of two blocks an SM walking the windows were both
-// slower at B = 4096 (PERF.md, Findings).
-constexpr int kThreads = 256;
+// slower at B = 4096 (PERF.md, Findings).  -DPCF_THREADS=T builds a tuning
+// variant with T threads (scripts/tune_frames_kernel_torch.py); without it
+// the build is the shipped kernel.
+#ifndef PCF_THREADS
+#define PCF_THREADS 256
+#endif
+constexpr int kThreads = PCF_THREADS;
+static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
+              "PCF_THREADS: whole warps, 32 to 1024 threads");
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxM = 21;  // n = 8 m <= 168
 constexpr float kFltEpsilon = 1.1920928955078125e-07f;  // FLT_EPSILON

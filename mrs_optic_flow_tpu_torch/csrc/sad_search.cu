@@ -61,12 +61,28 @@
 
 namespace {
 
-constexpr int kTI = 2;          // row shifts a warp
-constexpr int kTJ = 11;         // column shifts a warp
-constexpr int kTT = kTI * kTJ;  // shifts a warp
-constexpr int kRows = 32;       // block rows a warp: one a lane
-constexpr int kWarps = 8;       // warps a block at most
-constexpr int kMaxBand = 256;   // block columns a band at most
+// The register tile and the warps a block: -DSAD_TI=, -DSAD_TJ= and
+// -DSAD_WARPS= build a tuning variant (scripts/tune_sad_kernel_torch.py;
+// ops/cuda_kernels.py::sad_geometry takes the same three); without them the
+// build is the shipped kernel.
+#ifndef SAD_TI
+#define SAD_TI 2
+#endif
+#ifndef SAD_TJ
+#define SAD_TJ 11
+#endif
+#ifndef SAD_WARPS
+#define SAD_WARPS 8
+#endif
+constexpr int kTI = SAD_TI;        // row shifts a warp
+constexpr int kTJ = SAD_TJ;        // column shifts a warp
+constexpr int kTT = kTI * kTJ;     // shifts a warp
+constexpr int kRows = 32;          // block rows a warp: one a lane
+constexpr int kWarps = SAD_WARPS;  // warps a block at most
+constexpr int kMaxBand = 256;      // block columns a band at most
+// one lane sums each of a warp's shifts over its rows
+static_assert(kTT <= 32, "SAD_TI * SAD_TJ: at most 32 shifts a warp");
+static_assert(kWarps >= 1 && kWarps <= 32, "SAD_WARPS: 1 to 32 warps a block");
 
 __host__ __device__ constexpr int odd(int n) { return n | 1; }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }

@@ -37,6 +37,12 @@ def point_mean(pts: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, m, torch.full_like(m, float("nan")))
 
 
+def _row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[i]`` for a 0-dim index tensor, on its device: indexing with a
+    0-dim tensor reads the index back to the host first."""
+    return t.index_select(0, i.reshape(1))[0]
+
+
 def allsac_mean(
     pts: torch.Tensor, valid: torch.Tensor, threshold_radius_sq: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,11 +63,11 @@ def allsac_mean(
     members = (d2 < threshold_radius_sq) & valid[None, None, :]  # [n, n, k]
     counts = torch.where(pair_ok, members.sum(dim=-1), -1).reshape(-1)
     best = torch.argmax(counts)  # the first maximum in scan order
-    consensus = point_mean(pts_f, members.reshape(n * n, n)[best])
+    consensus = point_mean(pts_f, _row(members.reshape(n * n, n), best))
     n_valid = valid.sum()
     few = n_valid <= 2
     mean = torch.where(few, point_mean(pts_f, valid), consensus)
-    return mean, torch.where(few, n_valid, counts[best])
+    return mean, torch.where(few, n_valid, _row(counts, best))
 
 
 def allsac_mean_1d(
@@ -80,13 +86,13 @@ def allsac_mean_1d(
     members = ((mid[:, :, None] - v[None, None, :]).abs() < threshold_radius) & valid[None, None, :]
     counts = torch.where(pair_ok, members.sum(dim=-1), -1).reshape(-1)
     best = torch.argmax(counts)  # the first maximum in scan order
-    w = members.reshape(n * n, n)[best].to(v.dtype)
+    w = _row(members.reshape(n * n, n), best).to(v.dtype)
     consensus = (v * w).sum() / torch.clamp(w.sum(), min=1.0)
     n_valid = valid.sum()
     fallback = torch.where(n_valid > 0, (v * valid).sum() / torch.clamp(n_valid, min=1),
                            torch.full_like(consensus, float("nan")))
     few = n_valid <= 2
-    return torch.where(few, fallback, consensus), torch.where(few, n_valid, counts[best])
+    return torch.where(few, fallback, consensus), torch.where(few, n_valid, _row(counts, best))
 
 
 def draw_indices(
@@ -127,7 +133,7 @@ def ransac_mean(
     d2 = ((pts_f[None, :, :] - centers[:, None, :]) ** 2).sum(dim=-1)
     members = (d2 < threshold_radius_sq) & valid[None, :]
     best = torch.argmax(members.sum(dim=-1))
-    consensus = point_mean(pts_f, members[best])
+    consensus = point_mean(pts_f, _row(members, best))
     return torch.where(valid.sum() <= num_of_chosen, point_mean(pts_f, valid), consensus)
 
 

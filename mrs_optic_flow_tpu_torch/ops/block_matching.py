@@ -90,7 +90,8 @@ def histogram_vote(
     low_first = torch.arange(d, device=flow.device)
 
     def top(v):
-        bins = F.one_hot(v + scan_radius, d).sum(dim=-2)
+        bins = torch.zeros(v.shape[:-1] + (d,), dtype=torch.int64, device=v.device)
+        bins.scatter_add_(-1, v + scan_radius, torch.ones_like(v))
         return torch.topk(bins * d - low_first, top_k, dim=-1).indices - scan_radius
 
     return top(flow[..., 0]), top(flow[..., 1])
@@ -147,5 +148,5 @@ def refine_subpixel(
             shifted = prev_up[rows[:, None], cols[None, :]]
             sads.append(torch.where(mask, torch.abs(curr_up - shifted), 0.0).sum())
         best = torch.argmin(torch.stack(sads))
-        offset = offset + steps[best]
+        offset = offset + steps.index_select(0, best.reshape(1))[0]
     return offset.to(torch.float32) / scale

@@ -40,6 +40,7 @@ import ctypes
 import functools
 import os
 import pathlib
+import re
 import subprocess
 from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
@@ -132,29 +133,101 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
-    """Compile the kernel libraries ``names`` (default: all) from the
-    sources in the package, one ``nvcc`` process per source, all started
-    together.  Returns each kernel's compiler log (``-Xptxas=-v``:
-    registers, shared memory and spills).  Raises on a failed build."""
+def variant_path(name: str, defines: Dict[str, int]) -> pathlib.Path:
+    """The library of kernel ``name`` built with ``defines`` (a tuning
+    variant: ``build(names, defines=...)``): ``{"SAD_TI": 2, "SAD_TJ": 8}``
+    -> ``libsad_search_SAD_TI2_SAD_TJ8.so``; the shipped build is
+    :func:`library_path`."""
+    return BUILD_DIR / f"lib{name}_{'_'.join(f'{k}{v}' for k, v in sorted(defines.items()))}.so"
+
+
+def start_build(names: Optional[Iterable[str]] = None, *,
+                defines: Optional[Dict[str, int]] = None) -> dict:
+    """Start one ``nvcc`` a kernel of ``names`` (default: all), all at once,
+    without waiting: with ``defines``, each passed as ``-DNAME=VALUE`` (the
+    sources keep today's value of each such constant under ``#ifndef``) into
+    its variant's library (:func:`variant_path`), else into the shipped one.
+    Hand the result to :func:`finish_build`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    flags = [f"-D{k}={v}" for k, v in sorted((defines or {}).items())]
     jobs = {}
     for name in names or SOURCES:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        out = variant_path(name, defines) if defines else library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp)
+        jobs[name] = (proc, tmp, out)
+    return jobs
+
+
+def finish_build(jobs: dict) -> Dict[str, str]:
+    """Wait for :func:`start_build`'s compiles and move each library into
+    place.  Returns each kernel's compiler log (``-Xptxas=-v``: registers,
+    shared memory and spills).  Raises on a failed build."""
     logs, failed = {}, []
-    for name, (proc, tmp) in jobs.items():
+    for name, (proc, tmp, out) in jobs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode == 0:
-            os.replace(tmp, library_path(name))
+            os.replace(tmp, out)
         else:
             failed.append(f"{SOURCES[name]}: nvcc failed ({proc.returncode}):\n{logs[name]}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def finish_variants(jobs: dict) -> dict:
+    """Wait for variant builds started one a key (``{key:
+    start_build([name], defines=...)}``): ``{key: {"log": its compiler
+    log}}``, or ``{key: {"error": the failed build's message}}``, so that
+    one variant that does not build leaves the others usable."""
+    out = {}
+    for key, job in jobs.items():
+        try:
+            (log,) = finish_build(job).values()
+            out[key] = {"log": log}
+        except RuntimeError as e:
+            out[key] = {"error": str(e)[-2000:]}
+    return out
+
+
+def build(names: Optional[Iterable[str]] = None, *,
+          defines: Optional[Dict[str, int]] = None) -> Dict[str, str]:
+    """Compile the kernel libraries ``names`` (default: all) from the
+    sources in the package, one ``nvcc`` process per source, all started
+    together; with ``defines`` (``{macro: value}``) into the variant
+    libraries of :func:`variant_path`, which :func:`load_variant` binds.
+    Returns each kernel's compiler log.  Raises on a failed build."""
+    return finish_build(start_build(names, defines=defines))
+
+
+def ptxas_lines(log: str) -> list:
+    """The register, shared-memory and spill lines of a ``-Xptxas=-v`` log,
+    each after its kernel's template argument (``m=15``) where it has one."""
+    lines, entry = [], ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            arg = re.search(r"ILi(\d+)E", m.group(1))
+            entry = f"m={arg.group(1)}: " if arg else ""
+        elif "registers" in line or "spill" in line:
+            lines.append(entry + line.split(":", 1)[-1].strip())
+    return lines
+
+
+def _bind(name: str, path: pathlib.Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in _SIGNATURES[name].items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def load_variant(name: str, defines: Dict[str, int]) -> ctypes.CDLL:
+    """Kernel ``name``'s variant library built with ``defines`` (it must
+    have been built: ``build([name], defines=defines)``), bound."""
+    return _bind(name, variant_path(name, defines))
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,11 +238,7 @@ def load_library(name: str) -> ctypes.CDLL:
     newest = max(p.stat().st_mtime for p in [CSRC / SOURCES[name], *CSRC.glob("*.cuh")])
     if not lib_path.exists() or newest > lib_path.stat().st_mtime:
         build([name])
-    lib = ctypes.CDLL(str(lib_path))
-    for fn, (restype, argtypes) in _SIGNATURES[name].items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
-    return lib
+    return _bind(name, lib_path)
 
 
 def _check_launch(err: int, what: str) -> None:
@@ -317,6 +386,27 @@ def phase_correlate_frames(
             curr, prev, patch=patch, search_radius=search_radius,
             centroid_radius=centroid_radius,
         )
+    out = launch_phase_correlate_frames(
+        None, curr, prev, patch=patch,
+        search_radius=search_radius, centroid_radius=centroid_radius,
+    )
+    phase_correlate_frames.LAUNCHES += 1
+    return out
+
+
+def launch_phase_correlate_frames(
+    lib: Optional[ctypes.CDLL],
+    curr: torch.Tensor,
+    prev: torch.Tensor,
+    *,
+    patch: int,
+    search_radius: int = DEFAULT_SEARCH_RADIUS,
+    centroid_radius: int = DEFAULT_CENTROID_RADIUS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A from ``lib`` on CUDA tensors, with the checks of
+    :func:`phase_correlate_frames` and without its launch count: ``lib`` is
+    a variant of the shipped library (:func:`load_variant`), for the tuning
+    scripts, or None for the shipped one."""
     _check_cuda("phase_correlate_frames", curr, prev)
     if curr.dtype not in (torch.uint8, torch.float32) or prev.dtype != curr.dtype:
         raise ValueError(f"expected uint8 or float32 frames of one dtype, got {curr.dtype} and {prev.dtype}")
@@ -331,7 +421,7 @@ def phase_correlate_frames(
     q = _grid(curr.shape, patch)
     # the kernel reads 4 pixels at a time: 16-byte aligned frames
     curr, prev = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (curr, prev))
-    lib = load_library("phase_correlate_frames")
+    lib = lib or load_library("phase_correlate_frames")
     _smem_fits(lib.pcf_smem_bytes(patch), curr.device, f"patch {patch}")
 
     shift = torch.empty((b, q * q, 2), dtype=torch.float32, device=curr.device)
@@ -345,7 +435,6 @@ def phase_correlate_frames(
             torch.cuda.current_stream(curr.device).cuda_stream,
         )
     _check_launch(err, "phase_correlate_frames")
-    phase_correlate_frames.LAUNCHES += 1
     return shift, maxval
 
 
@@ -459,8 +548,13 @@ peak_refine_raw.LAUNCHES = 0
 
 #: kernel C's constants, as ``csrc/sad_search.cu`` states them: row shifts
 #: and column shifts a warp (its register tile), block rows a warp (one a
-#: lane), warps a block at most, columns a band at most
+#: lane), warps a block at most, columns a band at most.  The tile and the
+#: warps are the source's defaults of ``SAD_TI``, ``SAD_TJ`` and
+#: ``SAD_WARPS``; a tuning variant built with other values passes them to
+#: :func:`sad_geometry` as ``tile``
 SAD_TI, SAD_TJ, SAD_ROWS, SAD_WARPS, SAD_MAX_BAND = 2, 11, 32, 8, 256
+#: (row shifts, column shifts, warps) of the shipped kernel
+SAD_TILE = (SAD_TI, SAD_TJ, SAD_WARPS)
 #: blocks below which kernel C splits the block columns into bands: one on
 #: each of an H100's 132 SMs; a band keeps at least SAD_MIN_BAND columns
 SAD_FILL_BLOCKS = 132
@@ -490,39 +584,44 @@ class SadGeometry(NamedTuple):
     counters: int
 
 
-def sad_smem_bytes(r: int, xb: int) -> int:
+def sad_smem_bytes(r: int, xb: int, tile: Tuple[int, int, int] = SAD_TILE) -> int:
     """Kernel C's dynamic shared memory a block at radius ``r`` and band
     width ``xb``: the staged block rows and region rows (odd pitches), or the
     warps' row partials, whichever is larger (``sad_smem_bytes`` in
-    ``csrc/sad_search.cu``)."""
-    ni, nj = _sad_tiles(r)
+    ``csrc/sad_search.cu``), for the ``(ti, tj, warps)`` of ``tile``."""
+    ti, tj, _ = tile
+    ni, nj = _sad_tiles(r, tile)
 
     def odd(n):
         return n | 1
 
-    return 4 * max(SAD_ROWS * odd(xb) + (SAD_ROWS + ni * SAD_TI - 1) * odd(xb + nj * SAD_TJ),
-                   ni * nj * SAD_TI * SAD_TJ * (SAD_ROWS + 1))
+    return 4 * max(SAD_ROWS * odd(xb) + (SAD_ROWS + ni * ti - 1) * odd(xb + nj * tj),
+                   ni * nj * ti * tj * (SAD_ROWS + 1))
 
 
-def _sad_tiles(r: int) -> Tuple[int, int]:
+def _sad_tiles(r: int, tile: Tuple[int, int, int] = SAD_TILE) -> Tuple[int, int]:
     """(row-shift tiles, column-shift tiles) a block: as many column tiles
-    as the shifts need, up to SAD_WARPS, then row tiles up to SAD_WARPS
+    as the shifts need, up to ``warps``, then row tiles up to ``warps``
     warps."""
+    ti, tj, warps = tile
     d = 2 * r + 1
-    nj = min(_cdiv(d, SAD_TJ), SAD_WARPS)
-    return min(_cdiv(d, SAD_TI), SAD_WARPS // nj), nj
+    nj = min(_cdiv(d, tj), warps)
+    return min(_cdiv(d, ti), warps // nj), nj
 
 
-def sad_geometry(g: int, s: int, r: int) -> SadGeometry:
+def sad_geometry(g: int, s: int, r: int, tile: Tuple[int, int, int] = SAD_TILE) -> SadGeometry:
     """Kernel C's geometry for ``g`` cells of ``s x s`` blocks at radius
     ``r``: one block a (cell, row-shift band, column-shift band, row group,
     column band); one band while the others give SAD_FILL_BLOCKS blocks,
     else as many bands as reach it (each at least SAD_MIN_BAND columns).
     396 blocks of 256 threads at the node's ``g, s, r = 9, 120, 21``; 132
-    blocks in 3 bands of 40 columns at ``g = 1``."""
+    blocks in 3 bands of 40 columns at ``g = 1``.  ``tile`` is the
+    ``(ti, tj, warps)`` the library was built with (a tuning variant's
+    ``SAD_TI``, ``SAD_TJ``, ``SAD_WARPS``; the shipped ones by default)."""
+    ti, tj, _ = tile
     d = 2 * r + 1
-    ni, nj = _sad_tiles(r)
-    n_dib, n_djb = _cdiv(_cdiv(d, SAD_TI), ni), _cdiv(_cdiv(d, SAD_TJ), nj)
+    ni, nj = _sad_tiles(r, tile)
+    n_dib, n_djb = _cdiv(_cdiv(d, ti), ni), _cdiv(_cdiv(d, tj), nj)
     n_rg = _cdiv(s, SAD_ROWS)
     base = g * n_dib * n_djb * n_rg
     n_xb = _cdiv(s, SAD_MAX_BAND)
@@ -534,8 +633,8 @@ def sad_geometry(g: int, s: int, r: int) -> SadGeometry:
     regions = g * n_dib * n_djb
     return SadGeometry(
         xb=xb, n_xb=n_xb, n_rg=n_rg, parts=parts, ni=ni, nj=nj, n_dib=n_dib, n_djb=n_djb,
-        threads=32 * ni * nj, blocks=regions * parts, smem=sad_smem_bytes(r, xb),
-        scratch=regions * parts * ni * SAD_TI * nj * SAD_TJ, counters=regions,
+        threads=32 * ni * nj, blocks=regions * parts, smem=sad_smem_bytes(r, xb, tile),
+        scratch=regions * parts * ni * ti * nj * tj, counters=regions,
     )
 
 
@@ -560,6 +659,27 @@ def sad_search(
         return block_matching.sad_search(
             curr_blocks, prev_regions, block_size=block_size, scan_radius=scan_radius
         )
+    out = launch_sad_search(None, curr_blocks, prev_regions, block_size=block_size,
+                            scan_radius=scan_radius)
+    if curr_blocks.shape[0]:
+        sad_search.LAUNCHES += 1
+    return out
+
+
+def launch_sad_search(
+    lib: Optional[ctypes.CDLL],
+    curr_blocks: torch.Tensor,
+    prev_regions: torch.Tensor,
+    *,
+    block_size: int,
+    scan_radius: int,
+    tile: Tuple[int, int, int] = SAD_TILE,
+) -> torch.Tensor:
+    """Kernel C from ``lib`` on CUDA tensors, with the checks of
+    :func:`sad_search` and without its launch count: ``lib`` is a variant
+    built with the ``(SAD_TI, SAD_TJ, SAD_WARPS)`` of ``tile``
+    (:func:`load_variant`), for the tuning scripts, or None for the shipped
+    library (and ``tile`` its own)."""
     _check_cuda("sad_search", curr_blocks, prev_regions)
     s, r = block_size, scan_radius
     g = curr_blocks.shape[0]
@@ -577,8 +697,8 @@ def sad_search(
     dev = curr_blocks.device
     out = torch.empty((g, d, d), dtype=torch.float32, device=dev)
     if g:
-        lib = load_library("sad_search")
-        geo = sad_geometry(g, s, r)
+        lib = lib or load_library("sad_search")
+        geo = sad_geometry(g, s, r, tile)
         _smem_fits(geo.smem, dev, f"block {s}, radius {r}, bands of {geo.xb} columns")
         scratch = torch.empty((geo.scratch,), dtype=torch.float64, device=dev)
         counters = _counters("sad_search", dev, geo.counters)
@@ -589,7 +709,6 @@ def sad_search(
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _check_launch(err, "sad_search")
-        sad_search.LAUNCHES += 1
     return out
 
 

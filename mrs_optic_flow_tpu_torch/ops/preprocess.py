@@ -7,11 +7,21 @@ only the raw uint8 frame crosses to the card.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 # Weights of OpenCV's RGB2GRAY: gray = 0.299 R + 0.587 G + 0.114 B.
 _GRAY_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+@functools.lru_cache(maxsize=None)
+def _gray_weights(device: torch.device, swap_rb: bool) -> torch.Tensor:
+    """The grayscale weights on ``device``, built once: an upload from host
+    memory synchronises the host with the card, so none runs a frame."""
+    w = torch.tensor(_GRAY_WEIGHTS if swap_rb else _GRAY_WEIGHTS[::-1], dtype=torch.float32)
+    return w.to(device)
 
 
 def to_grayscale(img: torch.Tensor, *, swap_rb: bool = True) -> torch.Tensor:
@@ -22,10 +32,7 @@ def to_grayscale(img: torch.Tensor, *, swap_rb: bool = True) -> torch.Tensor:
     buffer (``:1622``), so the 0.299 weight lands on the blue channel.
     ``False`` gives the colorimetric conversion of a BGR input.
     """
-    w = torch.tensor(_GRAY_WEIGHTS, dtype=torch.float32, device=img.device)
-    if not swap_rb:
-        w = w.flip(0)
-    return torch.tensordot(img.to(torch.float32), w, dims=([-1], [0]))
+    return torch.tensordot(img.to(torch.float32), _gray_weights(img.device, swap_rb), dims=([-1], [0]))
 
 
 def quantize_u8(frame: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,12 @@ For each mode it builds an ``OpticFlowNode`` on the card, warms it up, feeds
 10 frames, then times ``--frames`` more (host wall time of each
 ``on_image``, which ends with the node's one readback), feeds the 10 again
 and profiles ``--frames`` frames under ``torch.profiler``.  It prints, per
-mode, the unprofiled p50 / p90 in ms, then from the profile: wall and device
-ms per frame, kernel launch calls and kernel events per frame, the device's
-idle share (1 - device time / profiled wall time; the profiler slows the
-host, so this is an upper bound) and the kernels with the most device time.
+mode, the unprofiled p50 / p90 in ms, then from the profile
+(``mrs_optic_flow_tpu_torch/utils/benchlib.py::profile_calls``): wall and
+device ms per frame (kernels and copies), kernel launch calls, kernels and
+device-to-host copies per frame, the device's idle share (1 - device time /
+profiled wall time; the profiler slows the host, so this is an upper bound)
+and the kernels with the most device time.
 The frames are ``chip_smoke.py``'s renders (a texture moving at 0.8, -0.5
 m/s; rotating and zooming for the scale/rotation modes).  Needs the CUDA
 toolkit to build the kernels; imports no JAX.
@@ -20,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -64,7 +65,6 @@ def frames_for(scene: str, n: int, height):
 
 def profile_mode(name: str, n_frames: int, dev) -> None:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from mrs_optic_flow_tpu_torch.config import NodeConfig
@@ -72,6 +72,7 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
         CameraInfo, Float64Stamped, ImageMsg, Imu, Odometry,
     )
     from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
+    from mrs_optic_flow_tpu_torch.utils.benchlib import percentiles, profile_calls
 
     fields, scene, height = MODES[name]
     frames, heights = frames_for(scene, WARM + n_frames, height)
@@ -98,30 +99,20 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
         t0 = time.perf_counter()
         feed(i)
         lat.append((time.perf_counter() - t0) * 1e3)
-    print(f"== {name} {fields}: unprofiled wall p50 {np.percentile(lat, 50):.3f} ms, "
-          f"p90 {np.percentile(lat, 90):.3f} ms over {n_frames} frames", flush=True)
+    pct = percentiles(lat)
+    print(f"== {name} {fields}: unprofiled wall p50 {pct['p50_ms']:.3f} ms, "
+          f"p90 {pct['p90_ms']:.3f} ms over {n_frames} frames", flush=True)
 
     for i in range(WARM):
         feed(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in measured:
-            feed(i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    launch_calls = sum(e.count for e in events
-                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    print(f"   profiled wall {wall / n_frames * 1e3:.3f} ms/frame, device "
-          f"{dev_us / n_frames / 1e3:.3f} ms/frame, launch calls {launch_calls / n_frames:.0f}/frame, "
-          f"kernel events {sum(e.count for e in kernels) / n_frames:.0f}/frame, "
-          f"idle {1 - dev_us / 1e6 / wall:.3f}", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"   {e.self_device_time_total / n_frames / 1e3:8.4f} ms/frame  "
-              f"x{e.count / n_frames:6.1f}  {e.key[:90]}", flush=True)
+    frames_left = iter(measured)
+    prof = profile_calls(lambda: feed(next(frames_left)), n_frames, top=8)
+    print(f"   profiled wall {prof['wall_ms']:.3f} ms/frame, device "
+          f"{prof['device_ms']:.3f} ms/frame, launch calls {prof['launch_calls']:.0f}/frame, "
+          f"kernel events {prof['kernels']:.0f}/frame, readbacks {prof['readbacks']:.0f}/frame, "
+          f"idle {prof['idle_share']:.3f}", flush=True)
+    for k in prof["top"]:
+        print(f"   {k['ms']:8.4f} ms/frame  x{k['calls']:6.1f}  {k['kernel']}", flush=True)
 
 
 def main() -> int:
@@ -140,8 +131,9 @@ def main() -> int:
         raise SystemExit("profile_torch_node.py needs a CUDA device")
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    from mrs_optic_flow_tpu_torch.utils.benchlib import card_name
+
+    print(card_name(), flush=True)
     cuda_kernels.build()
     dev = torch.device("cuda")
     for name in modes:

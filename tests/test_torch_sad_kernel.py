@@ -26,7 +26,11 @@ CU = pathlib.Path(ck.CSRC) / ck.SOURCES["sad_search"]
 
 
 def _cu_constants() -> dict:
-    return {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", CU.read_text())}
+    """The source's integer constants, one that a macro sets taking the
+    macro's default (``#define SAD_TI 2`` under ``#ifndef SAD_TI``)."""
+    text = CU.read_text()
+    macros = dict(re.findall(r"#define (\w+) (\d+)", text))
+    return {name: int(macros.get(v, v)) for name, v in re.findall(r"constexpr int (k\w+) = (\w+);", text)}
 
 
 def test_constants_match_the_source():
