@@ -158,8 +158,10 @@ Phases, each printing a line when it finishes:
     (``test_flight_banked_bag_roundtrips``' budgets); (j) the banked scene
     variants (lens distortion, principal point 420, 230) at the nominal
     banked budgets; (l) ``RosBridge`` and ``Ros2Bridge`` on fakes of
-    ``rospy`` and ``rclpy`` defined here, fed (h)'s ROS1 bag: twists equal
-    to (h)'s replay within 1e-6 m/s, every message of its builder's type;
+    ``rospy`` and ``rclpy`` defined here, fed (h)'s ROS1 bag as ROS1 or
+    ROS2 messages (``tests/torch_ros_standin/ros_standin.py::
+    ros_messages``): twists equal to (h)'s replay within 1e-6 m/s, every
+    message of its builder's type, each image callback timed;
     (g) and (k) ``python -m mrs_optic_flow_tpu_torch`` as eight
     subprocesses started together: ``--flight banked`` exits 0 with the
     report as its last line, ``--flight level --flight-rmse-budget 0.001``
@@ -218,14 +220,29 @@ Phases, each printing a line when it finishes:
     synchronisation made an error and one readback a node frame; (h) the
     method-3 and method-5 nodes: one device-to-host copy a frame (repair
     F13).  Every JSON line the scripts print is checked for its keys and
-    for finite numbers; it prints one line.
+    for finite numbers; it prints one line;
+19. right after phase 16, in its recording directory: the node executable,
+    ``scripts/optic_flow_tpu_torch_node``, as roslaunch (a) and ros2
+    launch (b) start it (``__name:=``/``__log:=``; ``--ros2 ... --ros-args
+    -r __node:= -r __ns:= --``), with no ``--device`` (the card), over
+    (h)'s level-flight ROS1 bag (a) and rosbag2 (b), under the stand-in
+    ROS of ``tests/torch_ros_standin/`` (jax, yaml and cv2 blocked), both
+    children started together, each with its own time limit: each exits 0,
+    publishes (l)'s twists of its flavour within 1e-6 m/s stamp for stamp,
+    launches kernel A at least once a processed frame and holds
+    ``check_bag_flight``'s budgets; the children find the kernel libraries
+    built and leave them as they are.  A line each prints the twists, the
+    largest difference, A's launches, the image callback's p50 and p90
+    beside (l)'s in-process ones and the cold start (process start to the
+    first image callback).
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
 a ``serving`` JSON object (phase 15's throughputs, tick times, the
 geometry's device time at B = 4096 and kernel A's share, with the card's
 ``nvidia-smi`` name and power limit), a ``flights`` object (phase 16's
-rows, the card, its wall time), then one JSON object describing each
+rows, the card, its wall time, phase 19's rows under ``live_nodes``), then
+one JSON object describing each
 kernel: its launches in its node phase and over phase 16's flights
 (``flight_launches``) and over phase 17's paths (``slice_launches``, none
 for E, which lies on none of them)
@@ -253,6 +270,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -273,6 +291,8 @@ from mrs_optic_flow_tpu_torch.utils.benchlib import (  # noqa: F401  (WORK, pc_f
 )
 
 REPO = pathlib.Path(__file__).resolve().parent
+#: the stand-in ROS packages phase 19's children run on
+STANDIN = REPO / "tests" / "torch_ros_standin"
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "phase_correlate_frames": ("mrs_optic_flow_tpu_torch/csrc/phase_correlate_frames.cu",
@@ -2557,64 +2577,30 @@ def fake_rclpy():
                            spin_once=lambda h, timeout_sec=0.1: None, pubs=pubs, subs=subs)
 
 
-#: the flights' bag topics -> the bridges' input topics
-BAG_TO_BRIDGE = {"/camera_info": "camera_info_in", "/imu": "imu_in", "/odometry": "odometry_in",
-                 "/height": "uav_height_in", "/image_raw": "camera_in"}
+@functools.lru_cache(maxsize=None)
+def ros_standin():
+    """``tests/torch_ros_standin/ros_standin.py``, loaded from its file: the
+    stand-in ROS graph's shared module, whose ``ros_messages`` (the bags'
+    messages as ROS1 or ROS2 messages, by the bridges' input topics,
+    ``BAG_TO_BRIDGE``) feeds phase 16(l)'s bridges and whose graph phase
+    19's children run on.  Its ``rospy`` and ``rclpy`` stay off this
+    process's path."""
+    import importlib.util
 
-
-def ros_messages(path: str, ros2: bool) -> list:
-    """(bridge input topic, ROS-shaped message) for every message of the
-    ROS1 bag at ``path``, in record order.  Each stamp comes from the raw
-    header (``seq, secs, nsecs``) as ``rospy.Time`` or as ROS2's
-    ``sec``/``nanosec``; the fields from the port's decoders."""
-    import struct
-    from types import SimpleNamespace
-
-    from mrs_optic_flow_tpu_torch.runtime import rosbag
-
-    def vec(v):
-        return SimpleNamespace(x=v[0], y=v[1], z=v[2])
-
-    def quat(q):
-        return SimpleNamespace(x=q[0], y=q[1], z=q[2], w=q[3])
-
-    out = []
-    with rosbag.BagReader(path) as reader:
-        for _, topic, _, raw in reader.messages():
-            secs, nsecs = struct.unpack_from("<II", raw, 4)
-            stamp = SimpleNamespace(sec=secs, nanosec=nsecs) if ros2 else FakeTime(secs + nsecs * 1e-9)
-            header = SimpleNamespace(stamp=stamp, frame_id="")
-            if topic == "/image_raw":
-                img = rosbag.decode_image_msg(raw).data
-                msg = SimpleNamespace(header=header, height=img.shape[0], width=img.shape[1],
-                                      encoding="mono8", step=img.shape[1], data=img.tobytes())
-            elif topic == "/camera_info":
-                info = rosbag.decode_camera_info_msg(raw)
-                fields = {"k": info.k, "d": info.d} if ros2 else {"K": info.k, "D": info.d}
-                msg = SimpleNamespace(header=header, binning_x=info.binning_x, **fields)
-            elif topic == "/imu":
-                imu = rosbag.decode_imu_msg(raw)
-                msg = SimpleNamespace(header=header, orientation=quat(imu.orientation),
-                                      angular_velocity=vec(imu.angular_velocity))
-            elif topic == "/odometry":
-                odo = rosbag.decode_odometry_msg(raw)
-                msg = SimpleNamespace(
-                    header=header, pose=SimpleNamespace(pose=SimpleNamespace(
-                        orientation=quat(odo.orientation))),
-                    twist=SimpleNamespace(twist=SimpleNamespace(
-                        linear=vec(odo.linear_velocity), angular=vec(odo.angular_velocity))))
-            else:
-                msg = SimpleNamespace(header=header, value=rosbag.decode_float64_stamped_msg(raw).value)
-            out.append((BAG_TO_BRIDGE[topic], msg))
-    return out
+    spec = importlib.util.spec_from_file_location("ros_standin", STANDIN / "ros_standin.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def fly_bridge(fl, sim, path: str, ros2: bool, label: str, **overrides):
     """Phase 16(l): ``RosBridge`` (or ``Ros2Bridge``) on the fake ``rospy``
     (``rclpy``) builds its node on ``dev``; the ROS1 bag's camera info goes
     in, the bridge warms up, then every message of the bag through the
-    subscribers' callbacks.  Returns (the bridge's fake publishers, the
-    node's publications, the report)."""
+    subscribers' callbacks, each image callback timed (the row's
+    ``callback_p50_ms``/``p90_ms``, the first, which only primes the node,
+    left out).  Returns (the bridge's fake publishers, the node's
+    publications, the report)."""
     from mrs_optic_flow_tpu_torch.config import load_config
     from mrs_optic_flow_tpu_torch.runtime import Ros2Bridge, RosBridge
     from mrs_optic_flow_tpu_torch.runtime.ros_bridge import _PUBLISHERS
@@ -2632,8 +2618,8 @@ def fly_bridge(fl, sim, path: str, ros2: bool, label: str, **overrides):
                            tf_buffer=FakeTfBuffer(), device=fl.dev)
     prefix = "~/" if ros2 else "~"
     callbacks = {ep.topic[len(prefix):]: ep.cb for ep in fake.subs}
-    messages = ros_messages(path, ros2)
-    published = []
+    messages = ros_standin().ros_messages(path, ros2)
+    published, image_ms = [], []
     to_ros = bridge.node.publish
     bridge.node.publish = lambda t, m: (published.append((t, m)), to_ros(t, m))
     callbacks[messages[0][0]](messages[0][1])  # the camera info
@@ -2641,25 +2627,37 @@ def fly_bridge(fl, sim, path: str, ros2: bool, label: str, **overrides):
 
     def run():
         for topic, msg in messages:
+            t0 = time.perf_counter()
             callbacks[topic](msg)
+            if topic == "camera_in":
+                image_ms.append((time.perf_counter() - t0) * 1e3)
 
     rep = fl.measure(sim, label, bridge.node, published, run)
+    fl.rows[label].update(callback_p50_ms=float(np.percentile(image_ms[1:], 50)),
+                          callback_p90_ms=float(np.percentile(image_ms[1:], 90)))
     for ep in fake.pubs:
         want = types_[_PUBLISHERS[ep.topic[len(prefix):]].type_key]
         check(all(type(m) is want for m in ep.sent), f"{label}: {ep.topic} published another type")
     return {ep.topic[len(prefix):]: ep.sent for ep in fake.pubs}, published, rep
 
 
-def ros_twist_diff(sent: dict, pub, ros2: bool) -> float:
-    """Largest difference [m/s] between the twists a bridge published as ROS
-    messages and a replay's, topic by topic and stamp by stamp (x and y)."""
+def sent_twists(sent: dict, ros2: bool) -> dict:
+    """topic -> {stamp rounded to 1 us: (linear x, linear y)} of the twists a
+    bridge published as ROS messages (the stand-in's ``twists`` form)."""
     def stamp(m):
         st = m.header.stamp
         return round(st.sec + st.nanosec * 1e-9 if ros2 else st.to_sec(), 6)
 
+    return {topic: {stamp(m): (m.twist.twist.linear.x, m.twist.twist.linear.y) for m in sent[topic]}
+            for topic in ("velocity_out", "velocity_out_longrange")}
+
+
+def ros_twist_diff(sent: dict, pub, ros2: bool) -> float:
+    """Largest difference [m/s] between the twists a bridge published as ROS
+    messages and a replay's, topic by topic and stamp by stamp (x and y)."""
     worst = 0.0
-    for topic in ("velocity_out", "velocity_out_longrange"):
-        a = {stamp(m): (m.twist.twist.linear.x, m.twist.twist.linear.y) for m in sent[topic]}
+    sent = sent_twists(sent, ros2)
+    for topic, a in sent.items():
         b = {round(m.stamp, 6): m.linear[:2] for t, m in pub if t == topic}
         check(a.keys() == b.keys() and len(a) > 0, f"{topic}: bridge stamps differ")
         for k in a:
@@ -2771,10 +2769,12 @@ def run_fleet_flight(dev, totals: dict) -> dict:
             "tick_p50_ms": float(np.percentile(tick_ms[1:], 50))}
 
 
-def run_flights(dev) -> dict:
-    """Phase 16.  Returns the ``flights`` line's object."""
-    import tempfile
-
+def run_flights(dev, rec_dir: pathlib.Path) -> tuple:
+    """Phase 16.  Returns the ``flights`` line's object and what phase 19
+    holds its children to: (h)'s bags (format -> (path, frames)), the level
+    flight's simulator and (l)'s bridges (ROS flavour -> their twists as
+    :func:`sent_twists` gives them, the row of their image callbacks).  The
+    recordings go to ``rec_dir``, which the caller keeps for phase 19."""
     from mrs_optic_flow_tpu_torch import native
     from mrs_optic_flow_tpu_torch.runtime import SyntheticScene
     from mrs_optic_flow_tpu_torch.runtime.flightsim import (
@@ -2899,111 +2899,215 @@ def run_flights(dev) -> dict:
         f"{yr_err:.4f} rad/s; the banked tilt gate NaNs all but {len(finite)} decodes, lifted its "
         f"worst yaw-rate error is {yr.max():.2f} rad/s")
 
-    # (e)-(l) write their recordings into a directory removed at the end
-    (REPO / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        rec_dir = pathlib.Path(tmp)
-        # (e) .ofrec record and replay, host preprocessing, store_video
-        rec_path = str(rec_dir / "level.ofrec")
-        level.record_ofrec(rec_path, level_frames)
-        with native.Replay(rec_path) as rp:
-            check(rp.n_frames == len(level.samples), f"{rp.n_frames} frames replayed")
-            replayed = [f for _, f in rp]
-            for i, (stamp, frame) in enumerate(rp):
-                check(stamp == level.samples[i].t, f"frame {i}: stamp {stamp}")
-                check(np.array_equal(frame, np.clip(np.rint(level_frames[i]), 0, 255).astype(np.uint8)),
-                      f"frame {i} differs from its render")
-        _, pub, rep = fl.fly(level, level_frames, "level replayed .ofrec", stream_frames=replayed,
-                             mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
-        check(rep.rmse_xy < 0.15 and rep.nan_published == 0, f"replayed flight: {rep}")
+    # (e)-(l) write their recordings into rec_dir
+    # (e) .ofrec record and replay, host preprocessing, store_video
+    rec_path = str(rec_dir / "level.ofrec")
+    level.record_ofrec(rec_path, level_frames)
+    with native.Replay(rec_path) as rp:
+        check(rp.n_frames == len(level.samples), f"{rp.n_frames} frames replayed")
+        replayed = [f for _, f in rp]
+        for i, (stamp, frame) in enumerate(rp):
+            check(stamp == level.samples[i].t, f"frame {i}: stamp {stamp}")
+            check(np.array_equal(frame, np.clip(np.rint(level_frames[i]), 0, 255).astype(np.uint8)),
+                  f"frame {i} differs from its render")
+    _, pub, rep = fl.fly(level, level_frames, "level replayed .ofrec", stream_frames=replayed,
+                         mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
+    check(rep.rmse_xy < 0.15 and rep.nan_published == 0, f"replayed flight: {rep}")
 
-        bgr = [np.repeat(f[..., None], 3, axis=-1) for f in replayed]
-        _, pub, _ = fl.fly(level, level_frames, "level host_preprocess", stream_frames=bgr,
-                           tpu={"host_preprocess": True},
-                           mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
-        crops = fl.rows["level host_preprocess"]["gray_crops"]  # every frame after the first
-        check(crops == len(level.samples) - 1, f"gray_crop ran {crops} times for "
-                                               f"{len(level.samples) - 1} frames")
-        host_diff = twist_diff(pub, level_twists["height_based"])
-        check(host_diff <= HOST_PRE_TWIST_TOL, f"host preprocessing moved a twist by {host_diff} m/s")
+    bgr = [np.repeat(f[..., None], 3, axis=-1) for f in replayed]
+    _, pub, _ = fl.fly(level, level_frames, "level host_preprocess", stream_frames=bgr,
+                       tpu={"host_preprocess": True},
+                       mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
+    crops = fl.rows["level host_preprocess"]["gray_crops"]  # every frame after the first
+    check(crops == len(level.samples) - 1, f"gray_crop ran {crops} times for "
+                                           f"{len(level.samples) - 1} frames")
+    host_diff = twist_diff(pub, level_twists["height_based"])
+    check(host_diff <= HOST_PRE_TWIST_TOL, f"host preprocessing moved a twist by {host_diff} m/s")
 
-        videos = {}
-        for ext in ("ofrec", "avi"):
-            path = str(rec_dir / f"overlay.{ext}")
-            fl.fly(level, level_frames, f"level store_video .{ext}", store_video=True, video_path=path,
-                   mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
-            videos[ext] = path
-        with native.Replay(videos["ofrec"]) as rp:
-            overlay_stamps, overlays = zip(*list(rp))
-        check(len(overlays) == len(level.samples) - 1 and overlays[0].shape == (480, 480),
-              f"{len(overlays)} overlay frames of {overlays[0].shape}")
-        check(list(overlay_stamps) == [s.t for s in level.samples[1:]], "overlay stamps")
-        w, h, avi = read_avi(videos["avi"])
-        check((w, h) == (480, 480) and len(avi) == len(overlays), f"AVI {w}x{h}, {len(avi)} frames")
-        check(all(np.array_equal(a[..., 0], o) and np.array_equal(a[..., 2], o)
-                  for a, o in zip(avi, overlays)), "the AVI's frames differ from the .ofrec overlays")
-        say(f"[16e flights] .ofrec replay bit-exact, replayed rmse_xy {rep.rmse_xy:.4f}; host "
-            f"preprocessing: gray_crop on all {crops} frames, twists within {host_diff:.3g} m/s of "
-            f"(a); store_video: {len(overlays)} overlays in .ofrec and .avi, equal")
+    videos = {}
+    for ext in ("ofrec", "avi"):
+        path = str(rec_dir / f"overlay.{ext}")
+        fl.fly(level, level_frames, f"level store_video .{ext}", store_video=True, video_path=path,
+               mrs_optic_flow={"long_range_mode": "height_based", "takeoff_height": 1.2})
+        videos[ext] = path
+    with native.Replay(videos["ofrec"]) as rp:
+        overlay_stamps, overlays = zip(*list(rp))
+    check(len(overlays) == len(level.samples) - 1 and overlays[0].shape == (480, 480),
+          f"{len(overlays)} overlay frames of {overlays[0].shape}")
+    check(list(overlay_stamps) == [s.t for s in level.samples[1:]], "overlay stamps")
+    w, h, avi = read_avi(videos["avi"])
+    check((w, h) == (480, 480) and len(avi) == len(overlays), f"AVI {w}x{h}, {len(avi)} frames")
+    check(all(np.array_equal(a[..., 0], o) and np.array_equal(a[..., 2], o)
+              for a, o in zip(avi, overlays)), "the AVI's frames differ from the .ofrec overlays")
+    say(f"[16e flights] .ofrec replay bit-exact, replayed rmse_xy {rep.rmse_xy:.4f}; host "
+        f"preprocessing: gray_crop on all {crops} frames, twists within {host_diff:.3g} m/s of "
+        f"(a); store_video: {len(overlays)} overlays in .ofrec and .avi, equal")
 
-        # (f) the fleet flight
-        fleet = run_fleet_flight(dev, fl.totals)
-        say("[16f flights] the fleet flight within budget")
+    # (f) the fleet flight
+    fleet = run_fleet_flight(dev, fl.totals)
+    say("[16f flights] the fleet flight within budget")
 
-        # (h) the level flight through both bag formats, from (a)'s renders
-        lr = {"long_range_mode": "height_based", "takeoff_height": 1.2}
-        bags, bag_pub = {}, {}
-        for fmt, name in (("bag", "level.bag"), ("bag2", "level_bag2")):
-            label = f"level {fmt} replay"
-            bags[fmt] = (str(rec_dir / name), len(level.samples))
-            node, bag_pub[fmt], rep = fl.fly_bag(level, level_frames, bags[fmt][0], fmt, label,
-                                                 mrs_optic_flow=lr)
-            check_bag_flight(rep, label)
-            check(not any(np.isnan(m.linear[:2]).any() for t, m in bag_pub[fmt]
-                          if t.startswith("velocity_out")), f"{label}: a NaN twist")
-        bag_diff = twist_diff(bag_pub["bag"], bag_pub["bag2"])
-        check(bag_diff <= HOST_PRE_TWIST_TOL, f"ROS1 and ROS2 replays differ by {bag_diff} m/s")
-        say(f"[16h flights] the level flight through .bag and rosbag2 within budget; ROS1 and "
-            f"ROS2 twists within {bag_diff:.3g} m/s")
+    # (h) the level flight through both bag formats, from (a)'s renders
+    lr = {"long_range_mode": "height_based", "takeoff_height": 1.2}
+    bags, bag_pub = {}, {}
+    for fmt, name in (("bag", "level.bag"), ("bag2", "level_bag2")):
+        label = f"level {fmt} replay"
+        bags[fmt] = (str(rec_dir / name), len(level.samples))
+        node, bag_pub[fmt], rep = fl.fly_bag(level, level_frames, bags[fmt][0], fmt, label,
+                                             mrs_optic_flow=lr)
+        check_bag_flight(rep, label)
+        check(not any(np.isnan(m.linear[:2]).any() for t, m in bag_pub[fmt]
+                      if t.startswith("velocity_out")), f"{label}: a NaN twist")
+    bag_diff = twist_diff(bag_pub["bag"], bag_pub["bag2"])
+    check(bag_diff <= HOST_PRE_TWIST_TOL, f"ROS1 and ROS2 replays differ by {bag_diff} m/s")
+    say(f"[16h flights] the level flight through .bag and rosbag2 within budget; ROS1 and "
+        f"ROS2 twists within {bag_diff:.3g} m/s")
 
-        # (i) the banked flight through both formats
-        for fmt, name in (("bag", "banked.bag"), ("bag2", "banked_bag2")):
-            label = f"banked {fmt} replay"
-            _, _, rep = fl.fly_bag(banked, banked_frames, str(rec_dir / name), fmt, label,
-                                   mrs_optic_flow=off)
-            check(rep.rmse_xy < 0.12 and rep.per_phase_rmse["climb"] < 0.10
-                  and rep.nan_published == 0, f"{label}: {rep}")
-            check(all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), f"{label}: {rep}")
-        say("[16i flights] the banked flight through .bag and rosbag2 within budget")
+    # (i) the banked flight through both formats
+    for fmt, name in (("bag", "banked.bag"), ("bag2", "banked_bag2")):
+        label = f"banked {fmt} replay"
+        _, _, rep = fl.fly_bag(banked, banked_frames, str(rec_dir / name), fmt, label,
+                               mrs_optic_flow=off)
+        check(rep.rmse_xy < 0.12 and rep.per_phase_rmse["climb"] < 0.10
+              and rep.nan_published == 0, f"{label}: {rep}")
+        check(all(cov >= 0.95 for cov in rep.per_phase_coverage.values()), f"{label}: {rep}")
+    say("[16i flights] the banked flight through .bag and rosbag2 within budget")
 
-        # (j) the banked flight's scene variants
-        for variant, kw in (("lens distortion", {"dist_coeffs": (-0.25, 0.06, 1e-4, -2e-4, -0.004)}),
-                            ("principal point 420,230", {"cx": 420.0, "cy": 230.0})):
-            label = f"banked {variant}"
-            sim = FlightSimulator(banked.samples, scene=SyntheticScene(seed=7, texture_cutoff=0.3, **kw))
-            node, _, rep = fl.fly(sim, fl.render(sim, label), label, mrs_optic_flow=off)
-            check_banked_report(rep, node, label)
-        say("[16j flights] the banked scene variants within the nominal banked budgets")
+    # (j) the banked flight's scene variants
+    for variant, kw in (("lens distortion", {"dist_coeffs": (-0.25, 0.06, 1e-4, -2e-4, -0.004)}),
+                        ("principal point 420,230", {"cx": 420.0, "cy": 230.0})):
+        label = f"banked {variant}"
+        sim = FlightSimulator(banked.samples, scene=SyntheticScene(seed=7, texture_cutoff=0.3, **kw))
+        node, _, rep = fl.fly(sim, fl.render(sim, label), label, mrs_optic_flow=off)
+        check_banked_report(rep, node, label)
+    say("[16j flights] the banked scene variants within the nominal banked budgets")
 
-        # (l) the bridges on fake rospy/rclpy, fed (h)'s ROS1 bag
-        bridge_diff = {}
-        for ros2, label in ((False, "level RosBridge"), (True, "level Ros2Bridge")):
-            sent, pub, rep = fly_bridge(fl, level, bags["bag"][0], ros2, label, mrs_optic_flow=lr)
-            check_bag_flight(rep, label)
-            bridge_diff[label] = max(ros_twist_diff(sent, bag_pub["bag"], ros2),
-                                     twist_diff(pub, bag_pub["bag"]))
-            check(bridge_diff[label] <= HOST_PRE_TWIST_TOL,
-                  f"{label}: twists {bridge_diff[label]} m/s from (h)'s replay")
-        say(f"[16l flights] RosBridge and Ros2Bridge publish (h)'s twists within "
-            f"{max(bridge_diff.values()):.3g} m/s, every message of its builders' type")
+    # (l) the bridges on fake rospy/rclpy, fed (h)'s ROS1 bag
+    bridge_diff, bridges = {}, {}
+    for ros2, label in ((False, "level RosBridge"), (True, "level Ros2Bridge")):
+        sent, pub, rep = fly_bridge(fl, level, bags["bag"][0], ros2, label, mrs_optic_flow=lr)
+        check_bag_flight(rep, label)
+        bridges["ros2" if ros2 else "ros1"] = (sent_twists(sent, ros2), fl.rows[label])
+        bridge_diff[label] = max(ros_twist_diff(sent, bag_pub["bag"], ros2),
+                                 twist_diff(pub, bag_pub["bag"]))
+        check(bridge_diff[label] <= HOST_PRE_TWIST_TOL,
+              f"{label}: twists {bridge_diff[label]} m/s from (h)'s replay")
+    say(f"[16l flights] RosBridge and Ros2Bridge publish (h)'s twists within "
+        f"{max(bridge_diff.values()):.3g} m/s, every message of its builders' type")
 
-        # (g) and (k): the CLI
-        cli = run_cli(dev, rec_path, bags)
+    # (g) and (k): the CLI
+    cli = run_cli(dev, rec_path, bags)
     wall = time.perf_counter() - t_phase
     say(f"[16 flights] {wall:.1f} s")
-    return {"flights": fl.rows, "launches": fl.totals, "fleet_flight": fleet, "cli": cli,
-            "host_preprocess_gray_crops": crops, "host_preprocess_twist_diff": host_diff,
-            "bag_twist_diff": bag_diff, "bridge_twist_diff": bridge_diff, "wall_s": wall}
+    return ({"flights": fl.rows, "launches": fl.totals, "fleet_flight": fleet, "cli": cli,
+             "host_preprocess_gray_crops": crops, "host_preprocess_twist_diff": host_diff,
+             "bag_twist_diff": bag_diff, "bridge_twist_diff": bridge_diff, "wall_s": wall},
+            {"bags": bags, "level": level, "bridges": bridges})
+
+
+# --------------------------------------------------------------------------- #
+# phase 19: the node executable, started as the launch systems start it        #
+# --------------------------------------------------------------------------- #
+
+#: phase 19's children: label -> (ROS flavour, (h)'s bag format, the
+#: arguments after the executable: roslaunch's (``__name:=``, ``__log:=``)
+#: or ros2 launch's (``--ros-args ... --``), with (h)'s config as
+#: ``extra_args`` and no ``--device``: the card)
+LIVE_CONFIG = ["--config", "configs/default.yaml", "--camera-frame", "uav1/bluefox_optflow_optical",
+               "--uav-frame", "uav1/fcu", "--set", "mrs_optic_flow.long_range_mode=height_based",
+               "--set", "mrs_optic_flow.takeoff_height=1.2"]
+LIVE_RUNS = {
+    "(a) ROS1": ("ros1", "bag", [*LIVE_CONFIG, "__name:=optic_flow", "__log:={tmp}/optic_flow.log"]),
+    "(b) ROS2": ("ros2", "bag2", ["--ros2", *LIVE_CONFIG, "--ros-args", "-r", "__node:=optic_flow",
+                                  "-r", "__ns:=/uav1", "--"]),
+}
+LIVE_TWIST_TOL = 1e-6  # m/s: the same node and kernels on the same card as (l)
+
+
+def run_live_nodes(dev, ref: dict, tmp: pathlib.Path) -> dict:
+    """Phase 19: ``scripts/optic_flow_tpu_torch_node`` as roslaunch (a) and
+    ros2 launch (b) start it, without ``--device`` (on the CPU, a rehearsal,
+    with ``--device cpu``), its only ROS the stand-in packages of
+    ``tests/torch_ros_standin/`` playing (h)'s level-flight ROS1 bag (a) or
+    rosbag2 (b); both started together, each with its own time limit, every
+    one stopped before this returns.  Each must exit 0 with jax, yaml and
+    cv2 blocked, publish (l)'s twists of its flavour within
+    ``LIVE_TWIST_TOL`` stamp for stamp, launch kernel A at least once a
+    processed frame (on the card) and hold ``check_bag_flight``'s budgets.
+    The children find the kernel libraries built (phase 2) and leave them
+    as they are.  Returns label -> its row; prints a line each."""
+    from types import SimpleNamespace
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels
+    from mrs_optic_flow_tpu_torch.runtime.flightsim import evaluate_flight
+
+    standin, level = ros_standin(), ref["level"]
+    libs = {}  # kernel -> its library's mtime, which the children must leave as it is
+    if dev.type == "cuda":
+        libs = {name: cuda_kernels.library_path(name).stat().st_mtime_ns for name in KERNELS}
+    procs, spawned, rows = {}, {}, {}
+    try:
+        for label, (ros, fmt, argv) in LIVE_RUNS.items():
+            out = tmp / f"live_{ros}.jsonl"
+            env = standin.environment(ref["bags"][fmt][0], str(out))
+            argv = [a.format(tmp=tmp) for a in argv] + ([] if dev.type == "cuda" else ["--device", "cpu"])
+            spawned[label] = time.time()
+            procs[label] = subprocess.Popen([str(REPO / "scripts" / "optic_flow_tpu_torch_node"), *argv],
+                                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        done = {}
+        for label, proc in procs.items():
+            _, stderr = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            done[label] = (proc.returncode, stderr)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    processed = len(level.samples) - 1
+    for label, (ros, fmt, _) in LIVE_RUNS.items():
+        rc, stderr = done[label]
+        check(rc == 0, f"19{label}: exit {rc}; stderr {stderr[-3000:]}")
+        published, summary = standin.read_output(str(tmp / f"live_{ros}.jsonl"))
+        check(all(summary["blocked"].values()) and summary["loaded"] == [],
+              f"19{label}: {summary['blocked']}, loaded {summary['loaded']}")
+        twists = standin.twists(published)
+        ref_twists, ref_row = ref["bridges"][ros]
+        diff = standin.twist_diff(twists, ref_twists)
+        check(diff <= LIVE_TWIST_TOL, f"19{label}: twists {diff} m/s from 16(l)'s")
+        launches = summary["launches"]
+        if dev.type == "cuda":
+            check(launches["phase_correlate_frames"] >= processed,
+                  f"19{label}: kernel A launched {launches['phase_correlate_frames']} times for "
+                  f"{processed} frames")
+        rep = evaluate_flight(level.samples, [
+            (r["topic"], SimpleNamespace(stamp=r["stamp"], linear=r["linear"], covariance=r["covariance"]))
+            for r in published if "linear" in r])
+        check_bag_flight(rep, f"19{label}")
+        image_ms = np.array(summary["image_callback_s"][1:]) * 1e3
+        check(len(image_ms) == processed, f"19{label}: {len(image_ms) + 1} image callbacks")
+        rows[label] = {
+            "exit": rc, "twists": sum(map(len, twists.values())), "twist_diff": diff,
+            "launches_a": launches["phase_correlate_frames"], "frames": processed + 1,
+            "rmse_xy": rep.rmse_xy, "mode_switches": len(rep.mode_switches),
+            "callback_p50_ms": float(np.percentile(image_ms, 50)),
+            "callback_p90_ms": float(np.percentile(image_ms, 90)),
+            "in_process_p50_ms": ref_row["callback_p50_ms"], "in_process_p90_ms": ref_row["callback_p90_ms"],
+            "cold_start_s": summary["first_image_wall"] - spawned[label],
+        }
+        r = rows[label]
+        say(f"[19{label} live node] exit 0, {r['twists']} twists, largest difference from 16(l) "
+            f"{diff:.3g} m/s, kernel A {r['launches_a']} launches for {processed} frames, rmse_xy "
+            f"{rep.rmse_xy:.4f} m/s, image callback p50 {r['callback_p50_ms']:.3f} ms p90 "
+            f"{r['callback_p90_ms']:.3f} ms (16(l) in process p50 {r['in_process_p50_ms']:.3f} ms p90 "
+            f"{r['in_process_p90_ms']:.3f} ms), cold start {r['cold_start_s']:.2f} s")
+    for name, mtime in libs.items():
+        check(cuda_kernels.library_path(name).stat().st_mtime_ns == mtime,
+              f"19: a child rebuilt {name}'s library")
+    if libs:
+        say(f"[19 live nodes] the children loaded the {len(libs)} kernel libraries as phase 2 built them")
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -3708,7 +3812,12 @@ def main() -> int:
     check_sad_large(dev)
     check_tf32(dev)
     serving = run_serving(dev)
-    flights = run_flights(dev)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        flights, live_ref = run_flights(dev, pathlib.Path(tmp))
+        t19 = time.perf_counter()
+        flights["live_nodes"] = run_live_nodes(dev, live_ref, pathlib.Path(tmp))
+        say(f"[19 live nodes] {time.perf_counter() - t19:.1f} s")
     slice_out = run_slice(dev)
     mesh = slice_out["mesh"]
     say(f"[17 slice] {slice_out['seconds']:.1f} s; frame-pairs/s at B = {SLICE_BENCH_PAIRS}: step_batch "

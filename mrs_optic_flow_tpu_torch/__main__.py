@@ -225,7 +225,10 @@ def _run_ros(args, cfg, device):
         rospy.loginfo("[OpticFlow]: warming up the kernels")
         bridge.warmup()
         rospy.loginfo("[OpticFlow]: warm; streaming")
-    bridge.spin()
+    try:
+        bridge.spin()
+    finally:
+        bridge.node.close()  # an AVI's index is written here (repair F14)
     return 0
 
 
@@ -250,7 +253,10 @@ def _run_ros2(args, cfg, device):
             log("[OpticFlow]: warming up the kernels")
             bridge.warmup()
             log("[OpticFlow]: warm; streaming")
-        bridge.spin()
+        try:
+            bridge.spin()
+        finally:
+            bridge.node.close()  # repair F14, as --ros
     finally:
         rclpy.shutdown()
     return 0

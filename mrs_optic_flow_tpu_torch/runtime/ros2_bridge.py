@@ -43,12 +43,7 @@ from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
 from mrs_optic_flow_tpu_torch.runtime.ros_bridge import (
     _PUBLISHERS,
     _import_default_types,
-    decode_image,
-    from_camera_info,
-    from_float64_stamped,
-    from_imu,
-    from_odometry,
-    from_tracker_diag,
+    input_subscriptions,
 )
 from mrs_optic_flow_tpu_torch.utils.device import DEFAULT_DEVICE
 from mrs_optic_flow_tpu_torch.utils.quat_np import np_rpy_from_quat
@@ -207,33 +202,14 @@ class Ros2Bridge:
                 self.types[spec.type_key], "~/" + topic, queue_size
             )
 
-        self._subs = []
-        subs = [
-            ("active_tracker_in", "ControlManagerDiagnostics", queue_size,
-             lambda m: self.node.on_tracker_status(from_tracker_diag(m))),
-            ("camera_info_in", "CameraInfo", sensor_qos,
-             lambda m: self.node.on_camera_info(from_camera_info(m))),
-            ("camera_in", "Image", sensor_qos,
-             lambda m: self.node.on_image(decode_image(m))),
-            ("uav_height_in", "Float64Stamped", queue_size,
-             lambda m: self.node.on_height(from_float64_stamped(m))),
-            ("odometry_in", "Odometry", queue_size,
-             lambda m: self.node.on_odometry(from_odometry(m))),
-        ]
-        if c.ang_rate_source == "imu":  # the reference's conditional (:1060)
-            subs.append(("imu_in", "Imu", sensor_qos,
-                         lambda m: self.node.on_imu(from_imu(m))))
-        for topic, key, qos, cb in subs:
-            if key not in self.types:
-                raise KeyError(
-                    f"message type {key!r} for topic {topic!r} is not "
-                    f"available; install mrs_msgs or pass msg_types={{...}}"
-                )
-            self._subs.append(
-                self.handle.create_subscription(
-                    self.types[key], "~/" + topic, cb, qos
-                )
+        # camera and IMU on the sensor-data profile, the rest keep-last
+        self._subs = [
+            self.handle.create_subscription(
+                self.types[key], "~/" + topic, cb,
+                sensor_qos if sensor else queue_size,
             )
+            for topic, key, sensor, cb in input_subscriptions(self)
+        ]
 
     # ------------------------------------------------------------------ #
 

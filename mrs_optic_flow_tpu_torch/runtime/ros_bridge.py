@@ -352,6 +352,32 @@ def _import_default_types() -> Dict[str, Any]:
     return types
 
 
+def input_subscriptions(bridge) -> list:
+    """The input topics of ``bridge`` (either bridge) as ``(topic, type key,
+    sensor data, callback)``: the reference's six (``src/optic_flow.cpp:
+    1049-1063``), the IMU only when ``ang_rate_source == "imu"`` (``:1060``).
+    ``sensor data``: the topic takes ROS2's best-effort sensor QoS.  A type
+    missing from ``bridge.types`` (no mrs_msgs) raises ``KeyError``."""
+    node = bridge.node
+    subs = [
+        ("active_tracker_in", "ControlManagerDiagnostics", False,
+         lambda m: node.on_tracker_status(from_tracker_diag(m))),
+        ("camera_info_in", "CameraInfo", True, lambda m: node.on_camera_info(from_camera_info(m))),
+        ("camera_in", "Image", True, lambda m: node.on_image(decode_image(m))),
+        ("uav_height_in", "Float64Stamped", False, lambda m: node.on_height(from_float64_stamped(m))),
+        ("odometry_in", "Odometry", False, lambda m: node.on_odometry(from_odometry(m))),
+    ]
+    if node.config.ang_rate_source == "imu":  # the reference's conditional (:1060)
+        subs.append(("imu_in", "Imu", True, lambda m: node.on_imu(from_imu(m))))
+    for topic, key, _, _ in subs:
+        if key not in bridge.types:
+            raise KeyError(
+                f"message type {key!r} for topic {topic!r} is not "
+                f"available; install mrs_msgs or pass msg_types={{...}}"
+            )
+    return subs
+
+
 class RosBridge:
     """Run an :class:`OpticFlowNode` on a live ROS1 graph.
 
@@ -444,34 +470,13 @@ class RosBridge:
                 "~" + topic, self.types[spec.type_key], queue_size=queue_size
             )
 
-        self._subs = []
-        subs = [
-            ("active_tracker_in", "ControlManagerDiagnostics",
-             lambda m: self.node.on_tracker_status(from_tracker_diag(m))),
-            ("camera_info_in", "CameraInfo",
-             lambda m: self.node.on_camera_info(from_camera_info(m))),
-            ("camera_in", "Image",
-             lambda m: self.node.on_image(decode_image(m))),
-            ("uav_height_in", "Float64Stamped",
-             lambda m: self.node.on_height(from_float64_stamped(m))),
-            ("odometry_in", "Odometry",
-             lambda m: self.node.on_odometry(from_odometry(m))),
-        ]
-        if c.ang_rate_source == "imu":  # the reference's conditional (:1060)
-            subs.append(("imu_in", "Imu",
-                         lambda m: self.node.on_imu(from_imu(m))))
-        for topic, key, cb in subs:
-            if key not in self.types:
-                raise KeyError(
-                    f"message type {key!r} for topic {topic!r} is not "
-                    f"available; install mrs_msgs or pass msg_types={{...}}"
-                )
-            self._subs.append(
-                self.rospy.Subscriber(
-                    "~" + topic, self.types[key], cb, queue_size=queue_size,
-                    tcp_nodelay=True,
-                )
+        self._subs = [
+            self.rospy.Subscriber(
+                "~" + topic, self.types[key], cb, queue_size=queue_size,
+                tcp_nodelay=True,
             )
+            for topic, key, _, cb in input_subscriptions(self)
+        ]
 
     # ------------------------------------------------------------------ #
 

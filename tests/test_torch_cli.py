@@ -243,7 +243,8 @@ def test_cli_ros_without_ros_raises_import_error(flag, module, monkeypatch):
 def test_cli_ros_runs_the_bridge(flag, monkeypatch):
     """``--ros``/``--ros2`` with a fake ``rospy``/``rclpy`` and bridge: ROS is
     initialised, the bridge built with the CLI's frames and device, warmed
-    up unless ``--no-warmup``, then spun (and ``rclpy`` shut down)."""
+    up unless ``--no-warmup``, then spun, its node closed (repair F14) and
+    ``rclpy`` shut down."""
     import types
 
     from mrs_optic_flow_tpu_torch.runtime import ros2_bridge, ros_bridge
@@ -256,6 +257,7 @@ def test_cli_ros_runs_the_bridge(flag, monkeypatch):
 
         def __init__(self, cfg, **kw):
             calls.append(("bridge", kw))
+            self.node = types.SimpleNamespace(close=lambda: calls.append(("close",)))
 
         def warmup(self):
             calls.append(("warmup",))
@@ -267,7 +269,7 @@ def test_cli_ros_runs_the_bridge(flag, monkeypatch):
         monkeypatch.setitem(sys.modules, "rospy", types.SimpleNamespace(
             init_node=lambda name: calls.append(("init", name)), loginfo=lambda msg: None))
         monkeypatch.setattr(ros_bridge, "RosBridge", Bridge)
-        first, last = ("init", "optic_flow"), ("spin",)
+        first, last = ("init", "optic_flow"), ("close",)
     else:
         monkeypatch.setitem(sys.modules, "rclpy", types.SimpleNamespace(
             init=lambda: calls.append(("init",)), shutdown=lambda: calls.append(("shutdown",))))
@@ -275,6 +277,7 @@ def test_cli_ros_runs_the_bridge(flag, monkeypatch):
         first, last = ("init",), ("shutdown",)
     assert main([flag, "--camera-frame", "cam", *CPU]) == 0
     assert calls[0] == first and calls[-1] == last and ("warmup",) in calls
+    assert calls[calls.index(("spin",)) + 1] == ("close",)
     kw = calls[1][1]
     assert (kw["camera_frame"], kw["uav_frame"], kw["uav_untilted_frame"]) == (
         "cam", "fcu", "fcu_untilted")

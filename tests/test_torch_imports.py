@@ -132,8 +132,13 @@ FORBIDDEN_IMPORT = re.compile(
 
 def test_port_sources_never_import_jax():
     """Neither JAX nor anything of the JAX package, not even a numpy-only
-    module, in the port or in ``chip_smoke.py``."""
-    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
+    module, in the port, in ``chip_smoke.py``, in the port's node executable
+    and ROS2 launch file or in the stand-in ROS packages it runs on in the
+    tests."""
+    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
+                 REPO / "scripts" / "optic_flow_tpu_torch_node",
+                 REPO / "launch" / "optic_flow_tpu_torch.launch.py",
+                 *(REPO / "tests" / "torch_ros_standin").rglob("*.py")]:
         assert not FORBIDDEN_IMPORT.search(path.read_text()), path
 
 

@@ -1,0 +1,4 @@
+"""``std_msgs.msg``: the stand-in's classes of the bag's flavour."""
+import ros_standin
+
+globals().update(ros_standin.package("std_msgs"))
