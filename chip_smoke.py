@@ -234,7 +234,20 @@ Phases, each printing a line when it finishes:
     built and leave them as they are.  A line each prints the twists, the
     largest difference, A's launches, the image callback's p50 and p90
     beside (l)'s in-process ones and the cold start (process start to the
-    first image callback).
+    first image callback);
+20. the node's frame graphs, right after phase 12: for every mode of
+    ``scripts/profile_torch_node.py`` (method 4, with scale/rotation,
+    methods 3 and 5, long range through kernels A and D, 480/60 through D,
+    and the two ``height_based`` modes that switch both ways), a node on
+    its CUDA graphs and one on the eager chain they replace, both warmed
+    up (warm-up captures every graph; no library, table or merge-counter
+    buffer is made while capturing), fed the same ``GRAPH_FRAMES`` steady
+    frames in turns: raw window shifts equal to 0 px, twists and decodes
+    within ``GRAPH_TWIST_TOL``, the generators' states equal, the
+    wrappers' launch counts equal, one graph replay and one host
+    synchronisation a frame (counted as the bench counts them); then a
+    capture made to raise: its frame fails, the next one tries to capture
+    again and fails too, and once the capture succeeds the node publishes.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
@@ -549,11 +562,12 @@ def measure_throughput(dev) -> tuple:
             say(f"  kernel A B={b}: own {own:.4f} ms, at {bound_ms / own:.2%} of the bound")
         out[b] = (ms, lib_ms)
     ms_twin_one = time_cuda(lambda: twin(curr[:1], prev[:1], patch=120), 50)
+    ms_twin_16 = time_cuda(lambda: twin(curr[:16], prev[:16], patch=120), 20)
     c1, p1 = curr[:1].contiguous(), prev[:1].contiguous()
     own_one = own_ms(lambda: kernel(c1, p1, patch=120), 200)
     lib_own_one = own_ms(lambda: library(c1, p1), 50)
     say(f"  B=1: kernel {out[1][0]:.4f} ms through the wrapper, own {own_one:.4f} ms; twin "
-        f"{ms_twin_one:.4f} ms; torch.fft route own {lib_own_one:.4f} ms")
+        f"{ms_twin_one:.4f} ms (B=16: {ms_twin_16:.4f} ms); torch.fft route own {lib_own_one:.4f} ms")
     say("[4 throughput] done")
     return out[1][0], own_one, ms_twin_one, out[1][1], lib_own_one
 
@@ -976,19 +990,23 @@ def level_node(dev, config, published: list):
     return node
 
 
-def feed_node(node, frames, heights=None) -> None:
-    """Frame i with its IMU, odometry at ``V_TRUE`` and height (``HEIGHT``
-    or ``heights[i]``) at ``100 + i DT``, level."""
+def feed_frame(node, i: int, frame, height: float = HEIGHT):
+    """Frame i with its IMU, odometry at ``V_TRUE`` and ``height`` at
+    ``100 + i DT``, level.  Returns ``on_image``'s twist."""
     from mrs_optic_flow_tpu_torch.runtime.msgs import Float64Stamped, ImageMsg, Imu, Odometry
 
+    t = 100.0 + i * DT
+    node.on_imu(Imu(stamp=t, angular_velocity=(0.0, 0.0, 0.0), orientation=(0.0, 0.0, 0.0, 1.0)))
+    node.on_odometry(Odometry(stamp=t, orientation=(0.0, 0.0, 0.0, 1.0),
+                              linear_velocity=(V_TRUE[0], V_TRUE[1], 0.0)))
+    node.on_height(Float64Stamped(stamp=t, value=height))
+    return node.on_image(ImageMsg(stamp=t, data=frame))
+
+
+def feed_node(node, frames, heights=None) -> None:
+    """:func:`feed_frame` of every frame, at ``HEIGHT`` or ``heights[i]``."""
     for i, frame in enumerate(frames):
-        t = 100.0 + i * DT
-        node.on_imu(Imu(stamp=t, angular_velocity=(0.0, 0.0, 0.0),
-                        orientation=(0.0, 0.0, 0.0, 1.0)))
-        node.on_odometry(Odometry(stamp=t, orientation=(0.0, 0.0, 0.0, 1.0),
-                                  linear_velocity=(V_TRUE[0], V_TRUE[1], 0.0)))
-        node.on_height(Float64Stamped(stamp=t, value=HEIGHT if heights is None else heights[i]))
-        node.on_image(ImageMsg(stamp=t, data=frame))
+        feed_frame(node, i, frame, HEIGHT if heights is None else heights[i])
 
 
 def drive_node(dev, config, frames, label: str, heights=None):
@@ -1806,6 +1824,252 @@ def compare_kernel_a(dev) -> None:
         err = float((runs["baseline"]() - runs["kernel"]()).abs().max())
         check(err <= SHIFT_TOL, f"baseline differs by {err} px")
         in_turns(f"kernel A B={b} (max|shift difference| {err:.2e} px)", runs, n_reps)
+
+
+# --------------------------------------------------------------------------- #
+# phase 20: the node's frame graphs                                            #
+# --------------------------------------------------------------------------- #
+
+#: phase 20's steady frames a mode, after the frame that primes the node and
+#: its first-frame copy (taken eagerly)
+GRAPH_FRAMES = 20
+#: largest difference [m/s] between a replayed twist and the eager chain's:
+#: half a unit in the sixth printed digit
+GRAPH_TWIST_TOL = 5e-7
+
+
+def eager_chain(node):
+    """``node`` with the eager chain its graphs replace: the frame and the
+    packed parameters uploaded from pageable memory, the chain's step on
+    the node's carries, the states taken by reference, the summary read
+    back, each operation launched from the host."""
+    import torch
+
+    def run_chain(img, channels, params, cx_eff, simple, long_range):
+        gray = node._gray(torch.from_numpy(np.array(img)).to(node.device), channels, cx_eff)
+        p = torch.from_numpy(params).to(node.device)
+        if simple:
+            states = node._frame_step_simple(gray, p)
+        elif long_range:
+            states = node._frame_step_lr(gray, p)
+        else:
+            states = node._frame_step(gray, p, cx_eff)
+        node.flow_state, node.scale_rot_state, summary, flow = states
+        return summary.cpu(), gray, flow
+
+    node._run_chain = run_chain
+    return node
+
+
+def counted_syncs(fn):
+    """``fn()`` with the host's synchronisations with the card counted
+    (``torch.cuda.set_sync_debug_mode("warn")``, as the bench counts them):
+    ``(its result, the count)``."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def capture_watch(made: list):
+    """Wraps the kernels' lazy set-up (libraries, twiddle and DFT tables,
+    merge counters, grayscale weights, log-polar taps) so that each one
+    made while a CUDA graph is being captured is named in ``made``: the
+    eager run before each capture must have made them all.  Returns the
+    undo."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels, logpolar, phase_correlate, preprocess
+
+    undo = []
+
+    def cached(mod, name):
+        orig = getattr(mod, name)
+
+        def wrapped(*args):
+            misses = orig.cache_info().misses
+            out = orig(*args)
+            if torch.cuda.is_current_stream_capturing() and orig.cache_info().misses > misses:
+                made.append(f"{name}{args[:1]}")
+            return out
+
+        wrapped.cache_info = orig.cache_info
+        setattr(mod, name, wrapped)
+        undo.append((mod, name, orig))
+
+    for mod, name in ((cuda_kernels, "load_library"), (cuda_kernels, "_twiddles"),
+                      (cuda_kernels, "_dft_blocks"), (phase_correlate, "_dft_tensors"),
+                      (preprocess, "_gray_weights"), (logpolar, "_device_table")):
+        cached(mod, name)
+    counters = cuda_kernels._counters
+
+    def counters_wrapped(name, device, n):
+        before = dict(cuda_kernels._COUNTERS)
+        buf = counters(name, device, n)
+        if torch.cuda.is_current_stream_capturing() and all(buf is not b for b in before.values()):
+            made.append(f"_counters({name})")
+        return buf
+
+    cuda_kernels._counters = counters_wrapped
+    undo.append((cuda_kernels, "_counters", counters))
+
+    def restore():
+        for mod, name, orig in undo:
+            setattr(mod, name, orig)
+
+    return restore
+
+
+def graph_mode(dev, name: str) -> dict:
+    """Phase 20, one mode of ``scripts/profile_torch_node.py``: a node on
+    its graphs and one on the eager chain, both warmed up, fed the same
+    ``GRAPH_FRAMES`` steady frames in turns."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from scripts.profile_torch_node import MODES, frames_for
+
+    fields, scene, height = MODES[name]
+    frames, heights = frames_for(scene, 2 + GRAPH_FRAMES, height)
+    config = NodeConfig(**fields)
+    pub = {"graph": [], "eager": []}
+    nodes = {"graph": level_node(dev, config, pub["graph"]),
+             "eager": eager_chain(level_node(dev, config, pub["eager"]))}
+    made: list = []
+    restore = capture_watch(made)
+    try:
+        for node in nodes.values():
+            node.warmup()
+    finally:
+        restore()
+    check(not made, f"{name}: made while capturing: {made}")
+    runner = nodes["graph"]._graphs
+    check(runner.captures == (4 if config.method == 4 else 2), f"{name}: {runner.captures} captures")
+    wrappers = kernel_wrappers()
+    launches = {k: dict.fromkeys(wrappers, 0) for k in nodes}
+    syncs = dict.fromkeys(nodes, 0)
+    replays, captures = runner.replays, runner.captures
+    for i, (frame, h) in enumerate(zip(frames, heights)):
+        for label, node in nodes.items():
+            if i < 2:  # the frame that primes the node, then the first-frame copy
+                feed_frame(node, i, frame, h)
+                continue
+            for fn in wrappers.values():
+                fn.LAUNCHES = 0
+            _, n = counted_syncs(lambda: feed_frame(node, i, frame, h))
+            syncs[label] += n
+            for k, fn in wrappers.items():
+                launches[label][k] += fn.LAUNCHES
+
+    def topic(label, t):
+        return [m for tp, m in pub[label] if tp == t]
+
+    # the raw window shifts, frame by frame (a long-range frame has fewer windows)
+    raw = [topic(k, "points_raw_out") for k in nodes]
+    check(len(raw[0]) == len(raw[1]) == 1 + GRAPH_FRAMES, f"{name}: {len(raw[0])} raw shift messages")
+    check(all(a.shape == b.shape and np.array_equal(a, b, equal_nan=True) for a, b in zip(*raw)),
+          f"{name}: raw window shifts differ")
+    twist = 0.0
+    n_twists = 0
+    for t in ("velocity_out", "velocity_out_longrange", "velocity_out_longrange_diff"):
+        a, b = topic("graph", t), topic("eager", t)
+        check([m.stamp for m in a] == [m.stamp for m in b], f"{name}: {t} stamps differ")
+        for x, y in zip(a, b):
+            u, v = np.array(x.linear + x.angular), np.array(y.linear + y.angular)
+            check(np.array_equal(np.isnan(u), np.isnan(v)), f"{name}: {t} NaN differs at {x.stamp}")
+            if not np.isnan(u).all():
+                twist = max(twist, float(np.nanmax(np.abs(u - v))))
+        n_twists += len(a)
+    sr_a, sr_b = (np.array([[m[k] for k in ("scale", "vz", "yaw_rate")] for m in topic(label, "scale_rotation_out")],
+                           np.float64).reshape(-1, 3) for label in nodes)
+    check(sr_a.shape == sr_b.shape and np.array_equal(np.isnan(sr_a), np.isnan(sr_b)),
+          f"{name}: scale/rotation messages")
+    sr = float(np.nanmax(np.abs(sr_a - sr_b))) if np.isfinite(sr_a).any() else 0.0
+    check(n_twists >= GRAPH_FRAMES, f"{name}: {n_twists} twists for {GRAPH_FRAMES + 1} frames")
+    check(twist <= GRAPH_TWIST_TOL and sr <= GRAPH_TWIST_TOL,
+          f"{name}: replayed twists differ from the eager chain's by {twist} m/s, decodes by {sr}")
+    check(launches["graph"] == launches["eager"],
+          f"{name}: launches {launches['graph']} replayed, {launches['eager']} eager")
+    check(any(launches["graph"].values()), f"{name}: no kernel launched")
+    check(syncs["graph"] == GRAPH_FRAMES, f"{name}: {syncs['graph']} host synchronisations in {GRAPH_FRAMES} frames")
+    check(runner.replays - replays == GRAPH_FRAMES and runner.captures == captures,
+          f"{name}: {runner.replays - replays} replays, {runner.captures - captures} captures")
+    # every replay advanced the RANSAC generator as the eager chain's frame did
+    check(torch.equal(nodes["graph"]._gen.get_state(), nodes["eager"]._gen.get_state()),
+          f"{name}: the generators' states differ")
+    p50 = {k: float(np.median(topic(k, "processing_latency_out")[2:])) * 1e3 for k in nodes}
+    row = {"twist_diff_mps": twist, "decode_diff": sr, "twists": n_twists,
+           "syncs_per_frame": syncs["graph"] / GRAPH_FRAMES,
+           "eager_syncs_per_frame": syncs["eager"] / GRAPH_FRAMES,
+           "p50_ms": p50["graph"], "eager_p50_ms": p50["eager"],
+           "launches": {k: v for k, v in launches["graph"].items() if v}}
+    say(f"  {name}: {json.dumps(row)}")
+    return row
+
+
+def refused_capture(dev) -> dict:
+    """Phase 20: a capture that raises fails its frame, and the node's next
+    frame tries to capture again: no frame falls back to the eager chain."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from mrs_optic_flow_tpu_torch.runtime.msgs import CameraInfo
+    from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
+
+    logs, published = [], []
+    node = OpticFlowNode(NodeConfig(), device=dev, publish=lambda t, m: published.append((t, m)),
+                         log=logs.append)
+    node.on_camera_info(CameraInfo(k=[FX, 0, 376.0, 0, FY, 240.0, 0, 0, 1], d=[0.0] * 5))
+    node.set_transforms((0.0, 0.0, 0.0, 1.0))
+    step = node._frame_step
+
+    def refusing(*args):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("capture refused")
+        return step(*args)
+
+    node._frame_step = refusing
+    frames = render_frames(5)
+    out = [feed_frame(node, i, frames[i]) for i in range(4)]
+    node._frame_step = step
+    out.append(feed_frame(node, 4, frames[4]))
+    failed = [s for s in logs if "capture refused" in s]
+    row = {"twists": [tw is not None for tw in out], "captures": node._graphs.captures,
+           "failure_logs": len(failed)}
+    say(f"  refused capture: {json.dumps(row)}; {failed[:1]}")
+    check(row["twists"] == [False, True, False, False, True], f"refused capture: {row}")
+    check(row["captures"] == 1 and failed, f"refused capture: {row}")
+    return row
+
+
+def run_frame_graphs(dev) -> dict:
+    """Phase 20.  Returns its line's object."""
+    import torch
+
+    from scripts.profile_torch_node import MODES
+
+    t0 = time.perf_counter()
+    # a process's first synchronisation warning is recorded twice (a bare
+    # wait counts 2, the next 1): spend it here, so that each frame's count
+    # below is the frame's own
+    _, first = counted_syncs(lambda: torch.cuda.current_stream(dev).synchronize())
+    _, bare = counted_syncs(lambda: torch.cuda.current_stream(dev).synchronize())
+    check(bare == 1, f"a bare wait counts {bare} synchronisations")
+    say(f"  a bare wait on the stream counts {first}, then {bare}")
+    out = {name: graph_mode(dev, name) for name in MODES}
+    out["refused_capture"] = refused_capture(dev)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[20 frame graphs] {out['seconds']:.1f} s: replays equal the eager chain in "
+        f"{len(MODES)} modes, one host synchronisation a frame; " + json.dumps(out))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -3809,6 +4073,7 @@ def main() -> int:
     d = check_fullfused_kernel(dev)
     e = check_fused_kernel(dev)
     launches_d, _ = run_long_range_nodes(dev)
+    run_frame_graphs(dev)
     check_sad_large(dev)
     check_tf32(dev)
     serving = run_serving(dev)

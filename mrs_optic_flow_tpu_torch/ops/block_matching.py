@@ -125,7 +125,10 @@ def refine_subpixel(
     offset = full_pix_flow.to(torch.int64)  # (x, y), prev-offset sign
     dev = curr.device
     probes = [(m, n) for m in (-1, 0, 1) for n in (-1, 0, 1)]
-    steps = torch.tensor([(n, m) for m, n in probes], device=dev)  # (x, y)
+    # probe k's step (x, y) = (n, m), made on the device: an upload from
+    # host memory would synchronise the host, and a CUDA graph cannot hold it
+    k = torch.arange(len(probes), device=dev)
+    steps = torch.stack([k % 3 - 1, k // 3 - 1], dim=-1)
     h, w = curr.shape
     scale = 1
     for _ in range(passes):

@@ -19,6 +19,11 @@ the SAD engine (kernel C) -> per-cell velocities -> consensus by
 estimator (kernel B) runs in the same function on the same full-resolution
 gray frame.  The frame and one packed parameter vector go up, and one
 ``summary`` tensor comes back: one readback per frame, as in the JAX node.
+The whole of it, uploads and readback included, is one function on static
+buffers (:meth:`_chain_body`); on a CUDA device
+:class:`~mrs_optic_flow_tpu_torch.runtime.frame_graph.FrameGraphs` captures
+it once per chain and input geometry and replays it a frame, so that a
+frame is one graph launch and one host synchronisation.
 
 Options of the JAX node: ``tpu.host_preprocess`` runs the native fused
 grayscale and crop on the host and uploads the ``frame_size``² window
@@ -56,8 +61,10 @@ from mrs_optic_flow_tpu_torch.models import (
     ScaleRotationEstimator,
     make_engine,
 )
+from mrs_optic_flow_tpu_torch.models.base import FlowState
 from mrs_optic_flow_tpu_torch.models.scale_rotation import ScaleRotState
 from mrs_optic_flow_tpu_torch.ops.preprocess import center_crop, resize_by, to_grayscale
+from mrs_optic_flow_tpu_torch.runtime.frame_graph import FrameGraphs
 from mrs_optic_flow_tpu_torch.runtime.msgs import (
     CameraInfo,
     Float64Stamped,
@@ -180,6 +187,12 @@ class OpticFlowNode:
         #: the JAX node's PRNGKey(0)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        #: the frame chains as static-buffer steps, one CUDA graph a key on
+        #: the card; the carries every graph reads and overwrites in place
+        self._graphs = FrameGraphs(self.device, generators=(self._gen,))
+        self._carry = self.flow_state.prev
+        self._sr_carry = (self.scale_rot_state.prev_logpolar
+                          if self.scale_rot_state is not None else None)
         self._frames_processed = 0
         self._consecutive_failures = 0
         #: rolling (flow, odometry) speed samples over analyze_duration
@@ -491,10 +504,11 @@ class OpticFlowNode:
 
     def close(self):
         """Release the video sink (an AVI's index is written here; the file
-        is valid after every frame regardless)."""
+        is valid after every frame regardless) and the frame graphs."""
         if self._recorder is not None:
             self._recorder.close()
         self._recorder = None
+        self._graphs.close()
 
     def _sr_step(self, gray: torch.Tensor):
         """Step the scale/rotation estimator on the frame's gray window:
@@ -610,6 +624,60 @@ class OpticFlowNode:
             parts.append(cells.reshape(-1))
         return flow_state, sr_state, torch.cat(parts), flow
 
+    def _carries_in(self) -> None:
+        """Point the node's carries at the static buffers every graph reads,
+        copying in a carry assigned since (``load_state``, ``warmup``'s
+        restore, a state set from outside)."""
+        fs, srs = self.flow_state, self.scale_rot_state
+        if fs.prev is not self._carry:
+            self._carry.copy_(fs.prev)
+            self.flow_state = FlowState(prev=self._carry, first=fs.first)
+        if srs is not None and srs.prev_logpolar is not self._sr_carry:
+            self._sr_carry.copy_(srs.prev_logpolar)
+            self.scale_rot_state = ScaleRotState(prev_logpolar=self._sr_carry, first=srs.first)
+
+    def _chain_body(self, slot, channels: int, cx_eff: int, simple: bool, long_range: bool):
+        """One frame's device work on ``slot``'s static buffers, from the
+        uploads to the readback: what a graph captures.  The new carries
+        overwrite the static ones.  Returns ``(host summary, gray, flow)``."""
+        frame, params = slot.upload()
+        gray = self._gray(frame, channels, cx_eff)
+        if simple:
+            states = self._frame_step_simple(gray, params)
+        elif long_range:
+            states = self._frame_step_lr(gray, params)
+        else:
+            states = self._frame_step(gray, params, cx_eff)
+        flow_state, sr_state, summary, flow = states
+        self._carry.copy_(flow_state.prev)
+        if sr_state is not None:
+            self._sr_carry.copy_(sr_state.prev_logpolar)
+        return slot.read_back(summary), gray, flow
+
+    def _run_chain(self, img: np.ndarray, channels: int, params: np.ndarray, cx_eff: int,
+                   simple: bool, long_range: bool):
+        """The frame through its chain: eagerly on a stream's first frame
+        (the carry is set there, ``models/fft_method.py``'s first-frame
+        copy), through the key's graph after that.  Returns ``(host
+        summary, gray, flow)``, the first filled once
+        :meth:`FrameGraphs.wait` returns."""
+        c = self.config
+        sr = self.scale_rotation_estimator is not None
+        chain = "simple" if simple else "long_range" if long_range else "short_range"
+        key = (chain, img.shape, img.dtype.str, channels, cx_eff, c.raw_output, sr)
+        slot = self._graphs.slot(key, img, len(params))
+        slot.load(img, params)
+        self._carries_in()
+        first = self.flow_state.first or (sr and self.scale_rot_state.first)
+        out = self._graphs.run(
+            slot, lambda: self._chain_body(slot, channels, cx_eff, simple, long_range),
+            capture=not first,
+        )
+        self.flow_state = FlowState(prev=self._carry, first=False)
+        if sr:
+            self.scale_rot_state = ScaleRotState(prev_logpolar=self._sr_carry, first=False)
+        return out
+
     def _process_image(
         self, msg: ImageMsg, long_range: Optional[bool] = None
     ) -> Optional[TwistWithCovarianceStamped]:
@@ -627,9 +695,7 @@ class OpticFlowNode:
 
         c = self.config
         height = self.uav_height
-        # a writable copy of a read-only frame (a bag's or a ROS message's
-        # buffer): torch.from_numpy does not take read-only arrays
-        img = np.require(msg.data, requirements=("C", "W"))
+        img = np.asarray(msg.data)
         channels = img.shape[2] if img.ndim == 3 else 1
         cx = float(self.camera_matrix[0, 2])
         if abs(c.scale_factor - 1.0) > 0.01:
@@ -666,29 +732,26 @@ class OpticFlowNode:
         long_range = long_range and not simple
         routine = ("frame_program_simple" if simple
                    else "frame_program_lr" if long_range else "frame_program")
-        with self._mutex, self.profiler.routine(routine):
-            gray = self._gray(torch.from_numpy(img).to(self.device), channels, cx_eff)
-            params_dev = torch.from_numpy(params).to(self.device)
-            if simple:
-                states = self._frame_step_simple(gray, params_dev)
-            elif long_range:
-                states = self._frame_step_lr(gray, params_dev)
-            else:
-                states = self._frame_step(gray, params_dev, cx_eff)
-            self.flow_state, self.scale_rot_state, summary_dev, flow = states
-        # ONE readback: [ok, tran_b (3)(, ang (3), n_inliers,
-        # ang_diff_rejected | , diff_b (3))(, scale, rot)(, raw shifts)]
-        summary = summary_dev.cpu().numpy()
+        with self._mutex:
+            with self.profiler.routine(routine):
+                host_summary, gray, flow = self._run_chain(img, channels, params, cx_eff,
+                                                           simple, long_range)
+            # ONE readback: [ok, tran_b (3)(, ang (3), n_inliers,
+            # ang_diff_rejected | , diff_b (3))(, scale, rot)(, raw shifts)];
+            # the next frame overwrites the host vector and a replay's
+            # outputs, so they are read under the lock
+            self._graphs.wait()
+            summary = host_summary.numpy().copy()
+            if (c.store_video or c.gui) and not self._warming:
+                # long-range shifts are measured on the downsampled frames:
+                # scaled to full-resolution pixels for the overlay
+                self._record_overlay(msg.stamp, gray, flow,
+                                     scale=float(c.long_range_ratio) if long_range else 1.0)
         k = 4 if simple else 7 if long_range else 9
         sr = self.scale_rotation_estimator is not None
         # the raw shifts first, then scale/rotation, as the JAX node publishes
         if c.raw_output:
             self.publish("points_raw_out", summary[k + 2 * sr:].reshape(-1, 2))
-        if (c.store_video or c.gui) and not self._warming:
-            # long-range shifts are measured on the downsampled frames:
-            # scaled to full-resolution pixels for the overlay
-            self._record_overlay(msg.stamp, gray, flow,
-                                 scale=float(c.long_range_ratio) if long_range else 1.0)
         if sr:
             # published regardless of the flow gate: the estimators are
             # independent (src/optic_flow.cpp:1629-1650)
@@ -821,12 +884,14 @@ class OpticFlowNode:
             self.publish("velocity_stddev_out", (sd.std_dev_x, sd.std_dev_y, 0.0))
 
     def warmup(self, image_shape=None) -> float:
-        """Run one synthetic frame pair per input geometry through the whole
-        chain, in both modes of method 4 (builds the kernel libraries on a
-        CUDA device), without touching the live stream: the flow and
-        scale/rotation carries, diagnostics history, health counters and the
-        random generator are restored.  Requires camera info.  Returns the
-        wall time spent."""
+        """Run one synthetic frame per input geometry through the whole
+        chain, in both modes of method 4, as a steady frame (on a CUDA
+        device this builds the kernel libraries and captures each chain's
+        graph), without touching the live stream: the flow and
+        scale/rotation carries (their values, in the static buffers the
+        graphs read), diagnostics history, health counters and the random
+        generator are restored.  Requires camera info.  Returns the wall
+        time spent."""
         if not self.got_camera_info:
             raise RuntimeError("warmup needs camera info (on_camera_info first)")
         t0 = time.perf_counter()
@@ -842,6 +907,9 @@ class OpticFlowNode:
             self.uav_height, list(self._speed_history), self._frames_processed,
             self._consecutive_failures, self._gen.get_state(),
         )
+        carries = [self.flow_state.prev.clone()]
+        if self.scale_rot_state is not None:
+            carries.append(self.scale_rot_state.prev_logpolar.clone())
         pub = self.publish
         self.publish = lambda *a: None
         # the zero frames reach neither the recording nor the GUI
@@ -852,6 +920,10 @@ class OpticFlowNode:
             self._begin = 0.0
             self.dt = 0.05
             self.uav_height = max(self.uav_height, 1.0)
+            # steady frames: each key's graph is captured here, not in the stream
+            self.flow_state = self.flow_state._replace(first=False)
+            if self.scale_rot_state is not None:
+                self.scale_rot_state = self.scale_rot_state._replace(first=False)
             modes = (False, True) if isinstance(self.engine, FftMethod) else (False,)
             for long_range in modes:
                 for shape in shapes:
@@ -866,6 +938,11 @@ class OpticFlowNode:
                 self.uav_height, self._speed_history, self._frames_processed,
                 self._consecutive_failures, gen_state,
             ) = saved
+            # the warm-up frames wrote the static carries: their values back
+            self.flow_state.prev.copy_(carries[0])
+            if self.scale_rot_state is not None:
+                self.scale_rot_state.prev_logpolar.copy_(carries[1])
+            # in place: the graphs hold this generator's state, not a copy
             self._gen.set_state(gen_state)
         return time.perf_counter() - t0
 
