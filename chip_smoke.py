@@ -238,15 +238,23 @@ Phases, each printing a line when it finishes:
 20. the node's frame graphs, right after phase 12: for every mode of
     ``scripts/profile_torch_node.py`` (method 4, with scale/rotation,
     methods 3 and 5, long range through kernels A and D, 480/60 through D,
-    and the two ``height_based`` modes that switch both ways), a node on
+    the two ``height_based`` modes that switch both ways, and each option
+    that changes the device chain: methods 3 and 5 with ``ransac``, method
+    5 with ``average``, ``scale_factor`` 0.8 (D at [16, 150, 150]) and 1.5
+    (A at 16 windows of 80), ``raw_output: false``, ``backend: fft`` with
+    scale/rotation (cuFFT and B only), ``use_pallas: false`` (no hand
+    kernel), ``quantize_8bit: false`` (A on float32 frames),
+    ``scale_rot_interp: bilinear`` and ``long_range_ratio: 2``), a node on
     its CUDA graphs and one on the eager chain they replace, both warmed
     up (warm-up captures every graph; no library, table or merge-counter
     buffer is made while capturing), fed the same ``GRAPH_FRAMES`` steady
-    frames in turns: raw window shifts equal to 0 px, twists and decodes
-    within ``GRAPH_TWIST_TOL``, the generators' states equal, the
-    wrappers' launch counts equal, one graph replay and one host
-    synchronisation a frame (counted as the bench counts them); then a
-    capture made to raise: its frame fails, the next one tries to capture
+    frames in turns: the engine's raw window shifts (from the flow each
+    chain returns) and the published ones equal to 0 px, twists and
+    decodes within ``GRAPH_TWIST_TOL``, the generators' states equal, the
+    wrappers' launch counts equal and each kernel of ``GRAPH_KERNELS[mode]``
+    launched at least once a frame and no other, one graph replay and one
+    host synchronisation a frame (counted as the bench counts them); then
+    a capture made to raise: its frame fails, the next one tries to capture
     again and fails too, and once the capture succeeds the node publishes.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
@@ -1836,6 +1844,21 @@ GRAPH_FRAMES = 20
 #: largest difference [m/s] between a replayed twist and the eager chain's:
 #: half a unit in the sixth printed digit
 GRAPH_TWIST_TOL = 5e-7
+_A, _B, _C, _D = ("phase_correlate_frames", "peak_refine_raw", "sad_search",
+                  "phase_correlate_fullfused")
+#: the kernels each mode of ``scripts/profile_torch_node.py`` launches on its
+#: steady frames, each at least once a frame; every other kernel launches
+#: none.  A patch that is not a multiple of 8 (60, 150) takes D; ``backend:
+#: fft`` computes its surfaces with cuFFT and takes B for their peaks;
+#: ``use_pallas: false`` takes none of the hand kernels
+GRAPH_KERNELS = {
+    "method4": {_A}, "method4_sr": {_A, _B}, "method3": {_C}, "method5": {_C},
+    "lr_only_120": {_A}, "lr_only_60": {_D}, "sr_only_60": {_D},
+    "switching_120_sr": {_A, _B}, "switching_60": {_D},
+    "method3_ransac": {_C}, "method5_average": {_C}, "method5_ransac": {_C},
+    "scale_0.8": {_D}, "scale_1.5": {_A}, "raw_off": {_A}, "fft_sr": {_B}, "plain": set(),
+    "float_frames": {_A}, "sr_bilinear": {_A, _B}, "lr_ratio_2": {_A},
+}
 
 
 def eager_chain(node):
@@ -1956,6 +1979,18 @@ def graph_mode(dev, name: str) -> dict:
     wrappers = kernel_wrappers()
     launches = {k: dict.fromkeys(wrappers, 0) for k in nodes}
     syncs = dict.fromkeys(nodes, 0)
+    # the engine's raw window shifts from the flow each chain returns, read
+    # after the frame (outside its counted synchronisations): a mode without
+    # raw_output publishes none
+    flows = {k: [] for k in nodes}
+    for label, node in nodes.items():
+        def run_chain(*args, _run=node._run_chain, _out=flows[label]):
+            out = _run(*args)
+            _out.append(out[2])
+            return out
+
+        node._run_chain = run_chain
+    raw = {k: [] for k in nodes}
     replays, captures = runner.replays, runner.captures
     for i, (frame, h) in enumerate(zip(frames, heights)):
         for label, node in nodes.items():
@@ -1964,18 +1999,25 @@ def graph_mode(dev, name: str) -> dict:
                 continue
             for fn in wrappers.values():
                 fn.LAUNCHES = 0
+            flows[label].clear()
             _, n = counted_syncs(lambda: feed_frame(node, i, frame, h))
             syncs[label] += n
             for k, fn in wrappers.items():
                 launches[label][k] += fn.LAUNCHES
+            raw[label] += [f.shifts_raw.cpu().numpy() for f in flows[label]]
 
     def topic(label, t):
         return [m for tp, m in pub[label] if tp == t]
 
     # the raw window shifts, frame by frame (a long-range frame has fewer windows)
-    raw = [topic(k, "points_raw_out") for k in nodes]
-    check(len(raw[0]) == len(raw[1]) == 1 + GRAPH_FRAMES, f"{name}: {len(raw[0])} raw shift messages")
-    check(all(a.shape == b.shape and np.array_equal(a, b, equal_nan=True) for a, b in zip(*raw)),
+    check(len(raw["graph"]) == len(raw["eager"]) == GRAPH_FRAMES,
+          f"{name}: {len(raw['graph'])} chain runs in {GRAPH_FRAMES} frames")
+    check(all(a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+              for a, b in zip(raw["graph"], raw["eager"])), f"{name}: the engine's raw shifts differ")
+    published = [topic(k, "points_raw_out") for k in nodes]
+    check(len(published[0]) == len(published[1]) == (1 + GRAPH_FRAMES if config.raw_output else 0),
+          f"{name}: {len(published[0])} raw shift messages")
+    check(all(a.shape == b.shape and np.array_equal(a, b, equal_nan=True) for a, b in zip(*published)),
           f"{name}: raw window shifts differ")
     twist = 0.0
     n_twists = 0
@@ -1998,7 +2040,10 @@ def graph_mode(dev, name: str) -> dict:
           f"{name}: replayed twists differ from the eager chain's by {twist} m/s, decodes by {sr}")
     check(launches["graph"] == launches["eager"],
           f"{name}: launches {launches['graph']} replayed, {launches['eager']} eager")
-    check(any(launches["graph"].values()), f"{name}: no kernel launched")
+    expected = GRAPH_KERNELS[name]
+    check(all(launches["graph"][k] >= GRAPH_FRAMES if k in expected else launches["graph"][k] == 0
+              for k in wrappers),
+          f"{name}: launches {launches['graph']}, expected {sorted(expected)} each frame and no other")
     check(syncs["graph"] == GRAPH_FRAMES, f"{name}: {syncs['graph']} host synchronisations in {GRAPH_FRAMES} frames")
     check(runner.replays - replays == GRAPH_FRAMES and runner.captures == captures,
           f"{name}: {runner.replays - replays} replays, {runner.captures - captures} captures")
@@ -2010,7 +2055,8 @@ def graph_mode(dev, name: str) -> dict:
            "syncs_per_frame": syncs["graph"] / GRAPH_FRAMES,
            "eager_syncs_per_frame": syncs["eager"] / GRAPH_FRAMES,
            "p50_ms": p50["graph"], "eager_p50_ms": p50["eager"],
-           "launches": {k: v for k, v in launches["graph"].items() if v}}
+           "launches": {k: v for k, v in launches["graph"].items() if v},
+           "launches_per_frame": {k: v / GRAPH_FRAMES for k, v in launches["graph"].items() if v}}
     say(f"  {name}: {json.dumps(row)}")
     return row
 

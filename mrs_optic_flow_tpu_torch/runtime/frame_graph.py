@@ -15,6 +15,7 @@ so the CPU and the card share the plumbing.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -106,6 +107,12 @@ class FrameGraphs:
     ``cx_eff`` (the crop's column and getRT's principal point), whether
     ``raw_output`` and scale/rotation are on.  The carries are the node's
     static buffers, which every graph reads and then overwrites in place.
+    The chain also reads Python values that are in neither the key nor the
+    parameter vector: the node's configuration (``scale_factor``,
+    ``filter_method`` and its RANSAC sizes, ``backend``, ``use_pallas``,
+    ``quantize_8bit``, ``scale_rot_interp``, ``long_range_ratio``, the
+    patch and the radii).  They are fixed for a node's life, so a graph is
+    right only for the node that captured it: graphs stay per node.
 
     :meth:`run` runs ``body`` directly on the CPU and where the caller asks
     for no capture (a stream's first frame, whose carry is not set yet).
@@ -123,7 +130,9 @@ class FrameGraphs:
     registered with every graph, so each replay advances them as the eager
     chain does.  The kernel wrappers count in Python, which a replay does
     not run: the launches counted while capturing are taken back and added
-    again at every replay.
+    again at every replay.  Python's garbage collector is paused while a
+    graph captures, so that no other node's graphs are destroyed inside the
+    capture.
     """
 
     def __init__(self, device: torch.device, generators: Iterable[torch.Generator] = ()):
@@ -170,10 +179,17 @@ class FrameGraphs:
             graph.register_generator_state(gen)
         before = {fn: fn.LAUNCHES for fn in WRAPPERS}
         read = _InputsRead()
+        # the collector stays out of the capture: a dropped node's graphs that
+        # it frees there are destroyed mid-capture, which CUDA refuses
+        # (cudaGraphExecDestroy while a stream captures), and the capture fails
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream), read:
                 outputs = body()
         finally:
+            if collecting:
+                gc.enable()
             # the capture ran nothing on the device: its counts go to the replays
             launches = {fn: fn.LAUNCHES - n for fn, n in before.items()}
             for fn, n in before.items():

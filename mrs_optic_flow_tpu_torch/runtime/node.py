@@ -84,6 +84,25 @@ from mrs_optic_flow_tpu_torch.utils.quat_np import (
     np_rpy_from_quat,
 )
 
+# The per-frame parameter vector: :func:`pack_params` packs it on the host,
+# the device chains read each field through its index or slice here.
+P_HEIGHT, P_DT = 0, 1
+P_CAM = slice(2, 11)  # K, row-major
+P_DIST = slice(11, 16)
+P_C2B = slice(16, 20)
+P_RATE_QUAT = slice(20, 24)
+P_DETILT = slice(24, 28)
+P_HEIGHT_LR, P_ROLL_RATE, P_PITCH_RATE, P_CAM_YAW = 28, 29, 30, 31
+
+
+def pack_params(height, dt, cam, dist, c2b, rate_quat, detilt, height_lr, roll_rate,
+                pitch_rate, cam_yaw) -> np.ndarray:
+    """The float32 vector of the ``P_*`` fields, in their order."""
+    return np.concatenate([
+        [height, dt], np.ravel(cam), np.ravel(dist)[:5], c2b, rate_quat, detilt,
+        [height_lr, roll_rate, pitch_rate, cam_yaw],
+    ]).astype(np.float32)
+
 
 class OpticFlowNode:
     def __init__(
@@ -522,17 +541,17 @@ class OpticFlowNode:
 
     def _frame_step(self, gray: torch.Tensor, params: torch.Tensor, cx_eff: int):
         """The method-4 device chain on the gray window: engine step ->
-        getRT -> detilt and body-frame rotation.  ``params`` packs
-        ``[height, dt, K (9), dist (5), c2b (4), rate_quat (4), detilt (4),
-        height_lr, roll_rate, pitch_rate, cam_yaw]``.
+        getRT -> detilt and body-frame rotation.  ``params`` is
+        :func:`pack_params`'s vector.
         Returns the new flow and scale/rotation states, the ``summary``
         vector ``[ok, tran_b (3), ang (3), n_inliers, ang_diff_rejected]``,
         then ``[scale, rot]`` with scale/rotation, then the raw shifts with
         ``raw_output``, and the engine's ``FlowResult``."""
         c = self.config
-        height, dt = params[0], params[1]
-        cam = params[2:11].reshape(3, 3)
-        dist, c2b, rate_quat, detilt = params[11:16], params[16:20], params[20:24], params[24:28]
+        height, dt = params[P_HEIGHT], params[P_DT]
+        cam = params[P_CAM].reshape(3, 3)
+        dist, c2b = params[P_DIST], params[P_C2B]
+        rate_quat, detilt = params[P_RATE_QUAT], params[P_DETILT]
 
         flow_state, flow = self.engine.step(self.flow_state, gray)
         res = get_rt(
@@ -571,8 +590,9 @@ class OpticFlowNode:
         ``imCurr_`` feed), then the long-range shifts with ``raw_output``, and
         the engine's ``FlowResult``."""
         c = self.config
-        dt, cam, c2b = params[1], params[2:11].reshape(3, 3), params[16:20]
-        height_lr, roll_rate, pitch_rate, cam_yaw = params[28:32]
+        dt, cam, c2b = params[P_DT], params[P_CAM].reshape(3, 3), params[P_C2B]
+        height_lr, roll_rate = params[P_HEIGHT_LR], params[P_ROLL_RATE]
+        pitch_rate, cam_yaw = params[P_PITCH_RATE], params[P_CAM_YAW]
         flow_state, flow = self.engine.step_long_range(self.flow_state, gray)
         res = get_2dt(flow.shifts, height_lr, dt, cam, roll_rate, pitch_rate, cam_yaw,
                       long_range_ratio=self.engine.config.long_range_ratio)
@@ -597,9 +617,9 @@ class OpticFlowNode:
         ``[scale, rot]`` with scale/rotation, then the per-cell shifts with
         ``raw_output``, and the engine's ``FlowResult``."""
         c = self.config
-        height, dt = params[0], params[1]
-        cam = params[2:11].reshape(3, 3)
-        c2b = params[16:20]
+        height, dt = params[P_HEIGHT], params[P_DT]
+        cam = params[P_CAM].reshape(3, 3)
+        c2b = params[P_C2B]
 
         flow_state, flow = self.engine.step(self.flow_state, gray)
         cells = flow.shifts_raw.reshape(-1, 2)
@@ -721,11 +741,9 @@ class OpticFlowNode:
 
         # get2DT takes the height corrected by the static tilt (:1781)
         height_lr = height / (np.cos(self.imu_pitch) * np.cos(self.imu_roll))
-        params = np.concatenate([
-            [height, self.dt], np.ravel(cam_eff), np.ravel(self.dist_coeffs)[:5],
-            self.c2b_quat, self.angular_rate_quat, detilt,
-            [height_lr, self.imu_roll_rate, self.imu_pitch_rate, self.cam_yaw],
-        ]).astype(np.float32)
+        params = pack_params(height, self.dt, cam_eff, self.dist_coeffs, self.c2b_quat,
+                             self.angular_rate_quat, detilt, height_lr, self.imu_roll_rate,
+                             self.imu_pitch_rate, self.cam_yaw)
         simple = not isinstance(self.engine, FftMethod)
         if long_range is None:
             long_range = self._resolve_long_range()

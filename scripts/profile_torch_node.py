@@ -12,7 +12,9 @@ mode, the unprofiled p50 / p90 in ms, then from the profile
 device ms per frame (kernels and copies), kernel launch calls, kernels and
 device-to-host copies per frame, the device's idle share (1 - device time /
 profiled wall time; the profiler slows the host, so this is an upper bound)
-and the kernels with the most device time.
+and the kernels with the most device time; the hand kernels' launches a
+frame (their wrappers' counts over the unprofiled frames); and a JSON line
+of these.
 The frames are ``chip_smoke.py``'s renders (a texture moving at 0.8, -0.5
 m/s; rotating and zooming for the scale/rotation modes).  Needs the CUDA
 toolkit to build the kernels; imports no JAX.
@@ -21,6 +23,7 @@ toolkit to build the kernels; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import json
 import pathlib
 import sys
 import time
@@ -45,6 +48,21 @@ MODES = {
                           "scale_rotation": True}, "switching", None),
     "switching_60": ({"long_range_mode": "height_based", "takeoff_height": 1.0,
                       "sample_point_size": 60}, "switching", None),
+    # the options that change the device chain, each alone; a scale_factor
+    # divides frame_size and sample_point_size as the YAML loader does
+    "method3_ransac": ({"method": 3, "filter_method": "ransac"}, "translate", None),
+    "method5_average": ({"method": 5, "filter_method": "average"}, "translate", None),
+    "method5_ransac": ({"method": 5, "filter_method": "ransac"}, "translate", None),
+    "scale_0.8": ({"scale_factor": 0.8, "frame_size": 600, "sample_point_size": 150},
+                  "translate", None),
+    "scale_1.5": ({"scale_factor": 1.5, "frame_size": 320, "sample_point_size": 80},
+                  "translate", None),
+    "raw_off": ({"raw_output": False}, "translate", None),
+    "fft_sr": ({"backend": "fft", "scale_rotation": True}, "affine", None),
+    "plain": ({"use_pallas": False, "use_pallas_explicit": True}, "translate", None),
+    "float_frames": ({"quantize_8bit": False}, "translate", None),
+    "sr_bilinear": ({"scale_rotation": True, "scale_rot_interp": "bilinear"}, "affine", None),
+    "lr_ratio_2": ({"long_range_mode": "always_on", "long_range_ratio": 2}, "translate", 0.8),
 }
 
 
@@ -68,6 +86,7 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
 
     import chip_smoke as cs
     from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from mrs_optic_flow_tpu_torch.ops import cuda_kernels
     from mrs_optic_flow_tpu_torch.runtime.msgs import (
         CameraInfo, Float64Stamped, ImageMsg, Imu, Odometry,
     )
@@ -94,14 +113,19 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
     for i in range(WARM):
         feed(i)
     torch.cuda.synchronize()
+    wrappers = [getattr(cuda_kernels, k) for k in cuda_kernels.SOURCES]
+    for fn in wrappers:
+        fn.LAUNCHES = 0
     lat = []
     for i in measured:
         t0 = time.perf_counter()
         feed(i)
         lat.append((time.perf_counter() - t0) * 1e3)
+    launches = {fn.__name__: fn.LAUNCHES / n_frames for fn in wrappers if fn.LAUNCHES}
     pct = percentiles(lat)
     print(f"== {name} {fields}: unprofiled wall p50 {pct['p50_ms']:.3f} ms, "
-          f"p90 {pct['p90_ms']:.3f} ms over {n_frames} frames", flush=True)
+          f"p90 {pct['p90_ms']:.3f} ms over {n_frames} frames; kernel launches a frame {launches}",
+          flush=True)
 
     for i in range(WARM):
         feed(i)
@@ -113,6 +137,10 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
           f"idle {prof['idle_share']:.3f}", flush=True)
     for k in prof["top"]:
         print(f"   {k['ms']:8.4f} ms/frame  x{k['calls']:6.1f}  {k['kernel']}", flush=True)
+    row = {"mode": name, "p50_ms": pct["p50_ms"], "p90_ms": pct["p90_ms"],
+           "device_ms": prof["device_ms"], "kernels": prof["kernels"],
+           "idle_share": prof["idle_share"], "launches_per_frame": launches}
+    print("   " + json.dumps(row), flush=True)
 
 
 def main() -> int:

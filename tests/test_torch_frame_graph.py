@@ -9,10 +9,16 @@ the CPU, where the same body runs that a CUDA graph captures on the card.
   back by reference, one readback), both drawing from generators seeded 0:
   method 4, a ``height_based`` stream that switches mode twice, method 3
   with ``ransac``, method 5 with ``allsac`` and method 4 with
-  scale/rotation.  Tolerance 0: the two run the same operations on the
-  same values.
+  scale/rotation, and each option that changes the device chain: method 5
+  with ``average`` and with ``ransac``, ``scale_factor`` 0.8 and 1.5,
+  ``raw_output: false``, ``backend: fft`` with scale/rotation, ``use_pallas:
+  false``, ``quantize_8bit: false``, ``scale_rot_interp: bilinear`` and
+  ``long_range_ratio: 2``.  Tolerance 0: the two run the same operations
+  on the same values.
 - ``warmup()`` leaves the carries' values and the generator as they were:
-  a node warmed mid-stream publishes what an unwarmed one does.
+  a node warmed mid-stream publishes what an unwarmed one does; warmed at
+  the stream's frame shape, every mode's steady frames run on keys that
+  warm-up made.
 - ``save_state`` mid-stream, ``load_state`` into a fresh node (given the
   generator's state, which the checkpoint format does not hold) and on:
   the node that flew the whole way.
@@ -22,12 +28,15 @@ the CPU, where the same body runs that a CUDA graph captures on the card.
   from the capture; the slot holds the tensors the capture read and did
   not make; a capture that raises fails the frame, keeps no graph and
   captures again at the key's next frame.
-- The method-4 stream against the JAX node: raw window shifts within 1e-3
-  px and twists within 1e-3 m/s (``tests/test_torch_node.py``'s
-  tolerances on a stream where every window is a RANSAC inlier).
+- The streams against the JAX node (``JAX_CHECKS``): raw window shifts
+  within 1e-3 px and twists within 1e-3 m/s (``tests/test_torch_node.py``'s
+  tolerances on a stream where every window is a RANSAC inlier), except
+  where a comment there gives the reason for another bound or for
+  comparing the raw shifts alone.
 """
 
 import contextlib
+import gc
 
 import numpy as np
 import pytest
@@ -36,8 +45,10 @@ import torch
 from mrs_optic_flow_tpu.config import load_config
 from mrs_optic_flow_tpu.runtime import OpticFlowNode as JaxNode
 from mrs_optic_flow_tpu_torch.config import NodeConfig
+from mrs_optic_flow_tpu_torch.config import load_config as load_port_config
 from mrs_optic_flow_tpu_torch.ops import cuda_kernels
 from mrs_optic_flow_tpu_torch.runtime import frame_graph
+from mrs_optic_flow_tpu_torch.runtime import node as node_module
 from mrs_optic_flow_tpu_torch.runtime.frame_graph import FrameGraphs, FrameSlot
 from mrs_optic_flow_tpu_torch.runtime.msgs import Float64Stamped, ImageMsg, Imu, Odometry
 from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
@@ -50,17 +61,40 @@ V = (0.4, -0.3)  # m/s: 1 and 0.75 px a frame at fx 100, 2 m
 SWITCH_HEIGHTS = [1.5] * 7 + [0.8] * 7 + [1.4] * 7
 M4 = dict(frame_size=128, sample_point_size=32)
 BM = dict(frame_size=96, sample_point_size=24, scan_radius=8, step_size=8)
-SR = dict(M4, scale_rotation=True, scale_rot_lp_resolution=64, scale_rot_magnitude=20.0)
+SR = {"scale_rotation": True, "scale_rot_lp_resolution": 64, "scale_rot_magnitude": 20.0}
+SR_STREAM = {"yaw_step": 0.03, "descent": 0.02}
+LOW = {"heights": [0.8] * N_IMAGES}
+#: mode -> (the YAML's overrides of configs/default.yaml, which both
+#: packages' loaders normalise alike: a scale_factor divides frame and
+#: patch, 128/32 -> 160/40 at 0.8 and 84/21 at 1.5; the stream)
 MODES = {
-    "method4": (NodeConfig(**M4), {}),
-    "height_based": (NodeConfig(**M4, long_range_mode="height_based", takeoff_height=1.0),
+    "method4": ({"mrs_optic_flow": M4}, {}),
+    "height_based": ({"mrs_optic_flow": dict(M4, long_range_mode="height_based", takeoff_height=1.0)},
                      {"heights": SWITCH_HEIGHTS}),
-    "method3_ransac": (NodeConfig(**BM, method=3, filter_method="ransac"), {}),
-    "method5_allsac": (NodeConfig(**BM, method=5, filter_method="allsac"), {}),
-    "scale_rotation": (NodeConfig(**SR), {"yaw_step": 0.03, "descent": 0.02}),
+    "method3_ransac": ({"mrs_optic_flow": dict(BM, method=3, filter_method="ransac")}, {}),
+    "method5_allsac": ({"mrs_optic_flow": dict(BM, method=5, filter_method="allsac")}, {}),
+    "scale_rotation": ({"mrs_optic_flow": M4, **SR}, SR_STREAM),
+    # each option that changes the device chain, alone
+    "method5_average": ({"mrs_optic_flow": dict(BM, method=5, filter_method="average")}, {}),
+    "method5_ransac": ({"mrs_optic_flow": dict(BM, method=5, filter_method="ransac")}, {}),
+    "scale_0.8": ({"mrs_optic_flow": dict(M4, scale_factor=0.8)}, {}),
+    "scale_1.5": ({"mrs_optic_flow": dict(M4, scale_factor=1.5)}, {}),
+    "raw_off": ({"mrs_optic_flow": M4, "raw_output": False}, {}),
+    "fft_sr": ({"mrs_optic_flow": M4, **SR, "tpu": {"backend": "fft"}}, SR_STREAM),
+    "plain": ({"mrs_optic_flow": M4, "tpu": {"use_pallas": False}}, {}),
+    "float_frames": ({"mrs_optic_flow": M4, "tpu": {"quantize_8bit": False}}, {}),
+    "sr_bilinear": ({"mrs_optic_flow": M4, **SR, "scale_rot_interp": "bilinear"}, SR_STREAM),
+    "lr_ratio_2": ({"mrs_optic_flow": dict(M4, long_range_mode="always_on"),
+                    "tpu": {"long_range_ratio": 2}}, LOW),
 }
 COMPARED = ("velocity_out", "velocity_out_longrange", "velocity_out_longrange_diff",
             "points_raw_out", "scale_rotation_out", "allsac_chosen_out", "max_velocity_out")
+
+
+def _mode(mode):
+    """The port's config of ``mode`` and its stream's arguments."""
+    overrides, stream = MODES[mode]
+    return load_port_config(overrides=overrides), stream
 
 
 def _events(*, heights=None, yaw_step=0.0, descent=0.0, n=N_IMAGES):
@@ -140,7 +174,7 @@ def _assert_same_log(ours, theirs):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_stream_equals_the_eager_chain(mode):
-    config, stream = MODES[mode]
+    config, stream = _mode(mode)
     events = _events(**stream)
     ours, theirs = [], []
     node, ref = _node(config, ours), _eager(_node(config, theirs))
@@ -165,7 +199,7 @@ def test_stream_equals_the_eager_chain(mode):
 
 @pytest.mark.parametrize("mode", ["scale_rotation", "height_based"])
 def test_warmup_keeps_the_carries_and_the_generator(mode):
-    config, stream = MODES[mode]
+    config, stream = _mode(mode)
     events = _events(**stream)
     half = 1 + 4 * 10  # camera info and 10 images
     warm, cold = [], []
@@ -203,9 +237,49 @@ def test_warmup_sees_steady_frames_of_both_shapes_and_modes():
     assert node.flow_state.first and node.first_image
 
 
+def test_parameter_vector_fields():
+    """Each field :func:`pack_params` packs reads back through its ``P_*``
+    index or slice, the only unpacking the chains do."""
+    fields = dict(height=1.5, dt=0.05, cam=np.arange(9.0).reshape(3, 3) + 10, dist=np.arange(5.0) + 20,
+                  c2b=np.arange(4.0) + 30, rate_quat=np.arange(4.0) + 40, detilt=np.arange(4.0) + 50,
+                  height_lr=1.6, roll_rate=0.1, pitch_rate=-0.2, cam_yaw=1.25)
+    params = node_module.pack_params(**fields)
+    assert params.dtype == np.float32 and params.shape == (node_module.P_CAM_YAW + 1,)
+    for name, value in fields.items():
+        got = params[getattr(node_module, f"P_{name.upper()}")]
+        np.testing.assert_array_equal(got, np.ravel(value).astype(np.float32).reshape(np.shape(got)))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_warmup_makes_every_key_the_stream_uses(mode):
+    """A stream warmed up at its frame shape runs every steady frame on a
+    key that warm-up made, so that on the card no graph is captured
+    mid-stream (under scale_factor too, where the crop's column and the
+    resize enter the chain)."""
+    config, stream = _mode(mode)
+    events = _events(**stream)
+    node = _node(config, [])
+    _feed(node, events[:1])
+    node.warmup(image_shape=events[-1][1].data.shape)
+    warm = set(node._graphs._slots)
+    captured = []
+    run = node._graphs.run
+
+    def spy(slot, body, capture):
+        if capture:
+            captured.append(slot)
+        return run(slot, body, capture)
+
+    node._graphs.run = spy
+    _feed(node, events[1:])
+    assert len(captured) == N_IMAGES - 2  # every frame after the first-frame copy
+    assert set(node._graphs._slots) == warm
+    assert all(any(s is slot for s in node._graphs._slots.values()) for slot in captured)
+
+
 @pytest.mark.parametrize("mode", ["method4", "scale_rotation", "method3_ransac"])
 def test_checkpoint_mid_stream_resumes_the_stream(mode, tmp_path):
-    config, stream = MODES[mode]
+    config, stream = _mode(mode)
     events = _events(**stream)
     half = 1 + 4 * 10
     whole, first, resumed = [], [], []
@@ -225,21 +299,75 @@ def test_checkpoint_mid_stream_resumes_the_stream(mode, tmp_path):
                      [(t, m) for t, m in resumed if t in topics])
 
 
-def test_stream_matches_the_jax_node():
-    events = _events()
+#: the JAX node's tolerances (``tests/test_torch_node.py``'s): raw window
+#: shifts [px], twists [m/s], and the scale/rotation decodes as
+#: ``tests/test_torch_node_modes.py`` holds them (scale; yaw rate and vz are
+#: rotation and scale over dt, vz times the height)
+SHIFT_TOL = TWIST_TOL = 1e-3
+DECODE_TOL = {"scale": 1e-3, "yaw_rate": 1e-3 / DT, "vz": 2e-3 / DT}
+#: raw shifts under scale_factor: the packages' bilinear resamples differ by
+#: up to 8e-4 gray levels (float32 rounding in another order), which moves a
+#: few pixels across a uint8 rounding boundary of the carried frame; one such
+#: pixel moves a 40 or 21 px window's shift by up to 0.01 px
+SCALE_SHIFT_TOL = 0.02
+#: float32 frames (quantize_8bit: false) keep every rounding difference of
+#: the grayscale and the DFT sums, and the cross-power's whitening amplifies
+#: it at the frequencies a window barely holds: on this stream the JAX node's
+#: own two routes (its Pallas kernel and its XLA path) differ by 0.011 px in
+#: one window, and the port differs from either by up to 0.025 px there
+FLOAT_SHIFT_TOL, FLOAT_TWIST_TOL = 0.03, 5e-3
+#: mode -> {topic: tolerance}.  Twists are compared where every window is in
+#: RANSAC's consensus, so that the packages' different draws (the JAX
+#: node's jax.random bits cannot be drawn in PyTorch) pick the same set: the
+#: yawing scale/rotation stream, the 84 px frames of scale_factor 1.5 (12 to
+#: 16 inliers of 16) and filter_method ransac leave windows out, and there
+#: the raw shifts (and the decodes) are compared alone
+JAX_CHECKS = {
+    "method4": {"points_raw_out": SHIFT_TOL, "velocity_out": TWIST_TOL},
+    "method5_average": {"points_raw_out": SHIFT_TOL, "velocity_out": TWIST_TOL},
+    "scale_0.8": {"points_raw_out": SCALE_SHIFT_TOL, "velocity_out": 5e-3},
+    "scale_1.5": {"points_raw_out": SCALE_SHIFT_TOL},
+    "raw_off": {"velocity_out": TWIST_TOL},
+    "fft_sr": {"points_raw_out": SHIFT_TOL, "scale_rotation_out": DECODE_TOL},
+    "plain": {"points_raw_out": SHIFT_TOL, "velocity_out": TWIST_TOL},
+    "float_frames": {"points_raw_out": FLOAT_SHIFT_TOL, "velocity_out": FLOAT_TWIST_TOL},
+    "sr_bilinear": {"points_raw_out": SHIFT_TOL, "scale_rotation_out": DECODE_TOL},
+    "lr_ratio_2": {"points_raw_out": SHIFT_TOL, "velocity_out_longrange": TWIST_TOL},
+    "method3_ransac": {"points_raw_out": SHIFT_TOL},
+    "method5_ransac": {"points_raw_out": SHIFT_TOL},
+}
+
+
+@pytest.mark.parametrize("mode", list(JAX_CHECKS))
+def test_stream_matches_the_jax_node(mode):
+    overrides, stream = MODES[mode]
+    config = load_port_config(overrides=overrides)
+    events = _events(**stream)
     ours, theirs = [], []
-    _feed(_node(NodeConfig(**M4), ours), events)
-    jax_node = JaxNode(load_config(overrides={"mrs_optic_flow": M4}),
+    _feed(_node(config, ours), events)
+    if config.method != 4:
+        # the JAX SAD engines' lax.scan route: their Pallas kernel compiles
+        # slowly in interpret mode (tests/test_torch_node_modes.py)
+        overrides = {**overrides, "tpu": {**overrides.get("tpu", {}), "use_pallas": False}}
+    jax_node = JaxNode(load_config(overrides=overrides),
                        publish=lambda t, m: theirs.append((t, m)), log=lambda s: None)
     jax_node.set_transforms((0.0, 0.0, 0.0, 1.0))
     _feed(jax_node, events)
-    for topic, tol in (("points_raw_out", 1e-3), ("velocity_out", 1e-3)):
-        a = [_flat(m) for t, m in ours if t == topic]
-        b = [_flat(m) for t, m in theirs if t == topic]
-        assert len(a) == len(b) == N_IMAGES - 1
-        if topic == "velocity_out":  # stamp and linear velocity
+    assert [t for t, _ in ours if t in COMPARED] == [t for t, _ in theirs if t in COMPARED]
+    assert any(t == "points_raw_out" for t, _ in ours) == config.raw_output
+    for topic, tol in JAX_CHECKS[mode].items():
+        a = [m for t, m in ours if t == topic]
+        b = [m for t, m in theirs if t == topic]
+        assert len(a) == len(b) == N_IMAGES - 1, topic
+        if topic == "scale_rotation_out":
+            for key, key_tol in tol.items():
+                np.testing.assert_allclose([m[key] for m in a], [m[key] for m in b], atol=key_tol,
+                                           rtol=0, err_msg=key)
+            continue
+        a, b = [_flat(m) for m in a], [_flat(m) for m in b]
+        if topic.startswith("velocity_out"):  # stamp and linear velocity
             a, b = [x[:4] for x in a], [x[:4] for x in b]
-        np.testing.assert_allclose(np.array(a), np.array(b), atol=tol, rtol=0)
+        np.testing.assert_allclose(np.array(a), np.array(b), atol=tol, rtol=0, err_msg=topic)
 
 
 # --------------------------------------------------------------------------- #
@@ -348,6 +476,23 @@ def test_runner_captures_once_and_replays_with_the_launch_counts(fake_cuda):
     assert runner.replays == 3 and runner.captures == 1
 
 
+def test_runner_keeps_the_collector_out_of_a_capture(fake_cuda):
+    """On the card, a dropped node's graphs that the collector frees inside
+    another node's capture are destroyed there, which CUDA refuses, and the
+    capture fails: the collector is paused while capturing, and only then."""
+    runner = fake_cuda
+    slot = FrameSlot(torch.device("cpu"), np.zeros((4, 4), np.uint8), 3)
+    collecting = []
+
+    def body():
+        collecting.append((_FakeGraph.capturing is not None, gc.isenabled()))
+        return ("outputs",)
+
+    runner.run(slot, body, capture=True)
+    assert collecting == [(False, True), (True, False)]
+    assert gc.isenabled() and runner.captures == 1
+
+
 def test_runner_capture_failure_raises_and_keeps_no_graph(fake_cuda):
     runner = fake_cuda
     slot = FrameSlot(torch.device("cpu"), np.zeros((4, 4), np.uint8), 3)
@@ -358,6 +503,19 @@ def test_runner_capture_failure_raises_and_keeps_no_graph(fake_cuda):
         with pytest.raises(RuntimeError, match="capture refused"):
             runner.run(slot, body, capture=True)
         assert slot.graph is None and runner.captures == 0 and runner.replays == 0
+        assert gc.isenabled()
         assert a.LAUNCHES == 2 * (k + 1)  # the eager runs' launches only
     runner.close()
     assert not runner._slots
+
+
+def test_phase_20_names_the_kernels_of_every_mode():
+    """``chip_smoke.py``'s phase 20 holds each mode of
+    ``scripts/profile_torch_node.py`` to the hand kernels it names."""
+    import chip_smoke
+    from scripts.profile_torch_node import MODES as CARD_MODES
+
+    assert set(chip_smoke.GRAPH_KERNELS) == set(CARD_MODES)
+    assert all(k <= set(chip_smoke.KERNELS) for k in chip_smoke.GRAPH_KERNELS.values())
+    assert chip_smoke.GRAPH_KERNELS["plain"] == set()
+    assert all(chip_smoke.GRAPH_KERNELS[m] for m in CARD_MODES if m != "plain")
