@@ -20,7 +20,7 @@ build/baseline/sad_search.cu``, with the headers it includes beside it
 Phases, each printing a line when it finishes:
 
 1. device: the ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compiles the hand-written kernels A to E from
+2. build: compiles the hand-written kernels A to E and G from
    ``mrs_optic_flow_tpu_torch/csrc/`` into ``build/torch_kernels/``, one
    ``nvcc`` per source, all started together, and checks the engines' route
    constant (kernel A's largest patch), kernel A's blocks an SM (two at
@@ -45,7 +45,7 @@ Phases, each printing a line when it finishes:
 5. the node: ``OpticFlowNode(NodeConfig(), device="cuda")`` on 20 BGR
    752x480 frames of a texture moving at a known velocity; every published
    twist after the first is held to 0.15 m/s of the truth, and every frame
-   is shown to have gone through the kernel;
+   is shown to have gone through kernel A and its getRT through kernel G;
 6. kernel B against its twin: log-polar surfaces at N = 480 (P = 1 and 4),
    FftMethod ``backend="fft"`` surfaces ``[64, 120, 120]``, and ties, NaN
    inside and outside the search window, an edge peak, an all-negative and
@@ -118,7 +118,8 @@ Phases, each printing a line when it finishes:
     ok and every ok twist within 0.15 m/s; on 64 of them ``get_rt_batch``
     against the per-pair ``get_rt`` on the same hypotheses (the Gumbel
     draws' top 4): ``ok`` and ``n_inliers`` equal, ``tran`` within
-    ``TRAN_PARITY``; (b) frame-pairs/s of ``step_pre`` at B = 4096 with one
+    ``TRAN_PARITY`` (float32 through kernel G, float64 through its plain
+    versions, which take any dtype); (b) frame-pairs/s of ``step_pre`` at B = 4096 with one
     call in flight and of ``ServingLoop(batch_size=512)`` over 4,096
     requests at depths 1 and 8 (one dispatch under the no-sync block), each
     with its device time split into kernel A, the geometry and the rest (or
@@ -255,7 +256,21 @@ Phases, each printing a line when it finishes:
     launched at least once a frame and no other, one graph replay and one
     host synchronisation a frame (counted as the bench counts them); then
     a capture made to raise: its frame fails, the next one tries to capture
-    again and fails too, and once the capture succeeds the node publishes.
+    again and fails too, and once the capture succeeds the node publishes;
+21. kernel G, getRT in one launch, right after phase 20: batched at B = 1,
+    128, 512 and 4096 with 16 and 64 windows and 256 and 512 hypotheses on
+    injected draws with exact ties (the lens distortion and a crop offset a
+    pair in half the cases), and per pair on the windows the method-4 node's
+    getRT receives over the bench's 313-frame flight with 512 hypotheses
+    injected a frame: the best hypothesis, ``n_inliers``, the inlier set and
+    ``ok`` equal to the plain version's bit for bit, the refit within
+    ``G_H_RTOL`` of the plain one, ``tran`` and ``rot`` within
+    ``G_TWIST_P99`` (99th percentile) and ``G_TWIST_TOL`` of the plain
+    version's, and at ``G_EXACT_BATCHES`` the refit and the twists bit for
+    bit; then timed at ``G_TIMED``
+    (one pair, 512 hypotheses, and the bench's 4,096 pairs, 256): its own
+    device time, the wrapper, the entry point with its draws, the plain
+    version and the bound.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
@@ -268,12 +283,14 @@ kernel: its launches in its node phase and over phase 16's flights
 (``flight_launches``) and over phase 17's paths (``slice_launches``, none
 for E, which lies on none of them)
 (kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
-conformance check of phase 11), its largest difference from its twin, its
+conformance check of phase 11; kernel G: phase 5), its largest difference
+from its twin (G: also ``max_abs_err_p99``; its numbers at B = 4096 under
+``b4096``), its
 time through the wrapper (``ms``, CUDA events over back-to-back calls), its
 own device time (``own_ms``, ``torch.profiler``'s kernel durations), the
 twin's and the stock PyTorch route's (``library_ms``: the ``torch.fft``
-chain for A, D and E; ``torch.cdist`` for C; null for B, which no PyTorch
-call computes; ``library_own_ms`` its own device time) at the node's shape,
+chain for A, D and E; ``torch.cdist`` for C; null for B and G, which no
+PyTorch call computes; ``library_own_ms`` its own device time) at the node's shape,
 and its bound there (``bound_ms``: the
 larger of its operations over 67 TFLOP/s and its bytes, each read or
 written once, over 3.35 TB/s; ``bound_by`` names which).  The last line is
@@ -326,6 +343,10 @@ KERNELS = {
                                   "mrs_optic_flow_tpu/ops/pallas_kernels.py:849"),
     "phase_correlate_fused": ("mrs_optic_flow_tpu_torch/csrc/phase_correlate_fused.cu",
                               "mrs_optic_flow_tpu/ops/pallas_kernels.py:916"),
+    # kernel G replaces no TPU kernel: the JAX package computes getRT in XLA
+    "get_rt": ("mrs_optic_flow_tpu_torch/csrc/get_rt.cu",
+               "none: getRT is XLA in the JAX package (mrs_optic_flow_tpu/geometry/motion.py:97, "
+               "geometry/batched.py:472)"),
 }
 
 SHIFT_TOL = 0.01  # px, kernel against twin and oracle (hard budget 0.1, BASELINE.md)
@@ -1056,16 +1077,19 @@ def check_twists(node, published, tol: float, label: str) -> None:
     check(health["frames_processed"] == len(twists), health)
 
 
-def run_node(dev) -> int:
-    """Phase 5.  Returns the kernel launches of the node's run."""
+def run_node(dev) -> dict:
+    """Phase 5.  Returns the kernel launches of the node's run, by kernel."""
     from mrs_optic_flow_tpu_torch.config import NodeConfig
 
     node, published, launches, _ = drive_node(dev, NodeConfig(), render_frames(N_FRAMES), "method 4")
     host = node.profiler.stats()["frame_program"]
     say(f"  host time to issue the frame chain p50 {host['p50_s'] * 1e3:.3f} ms")
     check_twists(node, published, TWIST_TOL, "method 4")
+    # every processed frame after the first-frame copy runs getRT once, in G
+    check(launches["get_rt"] == N_FRAMES - 1, f"{launches['get_rt']} kernel G launches for "
+          f"{N_FRAMES - 1} processed frames")
     say("[5 node] twists within budget")
-    return launches["phase_correlate_frames"]
+    return launches
 
 
 def run_scale_rotation_node(dev) -> int:
@@ -1736,8 +1760,9 @@ def check_tf32(dev) -> None:
 
 def check_route_constants() -> None:
     """Phase 2: the engines' route constant, kernels B's and C's geometry
-    helpers and kernels D's and E's plans, routes, shared memory and scratch
-    agree with the libraries' formulas and the device's limits."""
+    helpers, kernels D's and E's plans, routes, shared memory and scratch and
+    kernel G's shared memory and block shapes agree with the libraries'
+    formulas and the device's limits."""
     import torch
 
     from mrs_optic_flow_tpu_torch.ops import cuda_kernels as ck
@@ -1784,6 +1809,19 @@ def check_route_constants() -> None:
         check(pcfu.pcfu_smem_bytes(n) == ck.pcfu_smem_bytes(n), f"kernel E's shared memory at n={n}")
         check(pcfu.pcfu_scratch_bytes(n) == ck.pcfu_scratch_bytes(n), f"kernel E's scratch at n={n}")
         check(ck.pcfu_smem_bytes(n) + ck.STATIC_SMEM_BYTES <= limit, f"kernel E at n={n} does not fit")
+    # kernel G: shared memory and block shapes of the library are the wrapper's
+    grt = ck.load_library("get_rt")
+    for p in (9, 16, 36, 64, 256):
+        for t in (32, 64, 256):
+            for batched in (0, 1):
+                check(grt.grt_smem_bytes(p, t, batched) == ck.grt_smem_bytes(p, t, bool(batched)),
+                      f"kernel G's shared memory at P={p}, {t} threads, batched {batched}")
+        for b, iters in ((1, 512), (128, 256), (4096, 256), (4096, 512)):
+            wide = b > props.multi_processor_count
+            want = ck.grt_block_threads(p, iters, b > 1, limit - ck.STATIC_SMEM_BYTES,
+                                        ck.GRT_WIDE_SHAPE[0] if wide else ck.GRT_MAX_THREADS)
+            check(grt.grt_block_threads(b, p, iters, int(b > 1)) == want,
+                  f"kernel G's threads at B={b} P={p} I={iters}")
     peak_grid = {(p, n, r): ck.peak_split(p, n, r) for p, n, r in ((1, 480, 240), (4, 480, 240), (64, 120, 55))}
     occupancy = {n: pcf.pcf_blocks_per_sm(n) for n in range(8, ck.PCF_MAX_PATCH + 1, 8)}
     check(min(occupancy.values()) >= 1 and occupancy[120] >= 2,
@@ -1793,7 +1831,8 @@ def check_route_constants() -> None:
         f"{node.blocks} blocks of {node.threads} threads, {node.smem} B, {per_sm} an SM by shared "
         f"memory ({sm_limit} B an SM); kernel B (blocks a surface, rows a block): {peak_grid}; kernels D "
         f"and E: one block a pair up to n = {ck.PCFF_MAX_SMALL}, D's plans and routes, D's and E's "
-        f"shared memory and scratch match for n = 1..480")
+        f"shared memory and scratch match for n = 1..480; kernel G's shared memory and block shapes "
+        f"match")
 
 
 def compare_kernel_a(dev) -> None:
@@ -1844,20 +1883,21 @@ GRAPH_FRAMES = 20
 #: largest difference [m/s] between a replayed twist and the eager chain's:
 #: half a unit in the sixth printed digit
 GRAPH_TWIST_TOL = 5e-7
-_A, _B, _C, _D = ("phase_correlate_frames", "peak_refine_raw", "sad_search",
-                  "phase_correlate_fullfused")
+_A, _B, _C, _D, _G = ("phase_correlate_frames", "peak_refine_raw", "sad_search",
+                      "phase_correlate_fullfused", "get_rt")
 #: the kernels each mode of ``scripts/profile_torch_node.py`` launches on its
-#: steady frames, each at least once a frame; every other kernel launches
-#: none.  A patch that is not a multiple of 8 (60, 150) takes D; ``backend:
-#: fft`` computes its surfaces with cuFFT and takes B for their peaks;
-#: ``use_pallas: false`` takes none of the hand kernels
+#: steady frames, each at least once a frame (G once a short-range frame:
+#: every method-4 frame that is not long range runs getRT); every other
+#: kernel launches none.  A patch that is not a multiple of 8 (60, 150) takes
+#: D; ``backend: fft`` computes its surfaces with cuFFT and takes B for their
+#: peaks; ``use_pallas: false`` takes none of the engines' hand kernels
 GRAPH_KERNELS = {
-    "method4": {_A}, "method4_sr": {_A, _B}, "method3": {_C}, "method5": {_C},
-    "lr_only_120": {_A}, "lr_only_60": {_D}, "sr_only_60": {_D},
-    "switching_120_sr": {_A, _B}, "switching_60": {_D},
+    "method4": {_A, _G}, "method4_sr": {_A, _B, _G}, "method3": {_C}, "method5": {_C},
+    "lr_only_120": {_A}, "lr_only_60": {_D}, "sr_only_60": {_D, _G},
+    "switching_120_sr": {_A, _B, _G}, "switching_60": {_D, _G},
     "method3_ransac": {_C}, "method5_average": {_C}, "method5_ransac": {_C},
-    "scale_0.8": {_D}, "scale_1.5": {_A}, "raw_off": {_A}, "fft_sr": {_B}, "plain": set(),
-    "float_frames": {_A}, "sr_bilinear": {_A, _B}, "lr_ratio_2": {_A},
+    "scale_0.8": {_D, _G}, "scale_1.5": {_A, _G}, "raw_off": {_A, _G}, "fft_sr": {_B, _G},
+    "plain": {_G}, "float_frames": {_A, _G}, "sr_bilinear": {_A, _B, _G}, "lr_ratio_2": {_A},
 }
 
 
@@ -1983,10 +2023,12 @@ def graph_mode(dev, name: str) -> dict:
     # after the frame (outside its counted synchronisations): a mode without
     # raw_output publishes none
     flows = {k: [] for k in nodes}
+    short = dict.fromkeys(nodes, 0)  # short-range chain runs in the counted frames
     for label, node in nodes.items():
-        def run_chain(*args, _run=node._run_chain, _out=flows[label]):
+        def run_chain(*args, _run=node._run_chain, _out=flows[label], _label=label):
             out = _run(*args)
             _out.append(out[2])
+            short[_label] += not (args[4] or args[5])  # neither simple nor long range
             return out
 
         node._run_chain = run_chain
@@ -2000,6 +2042,8 @@ def graph_mode(dev, name: str) -> dict:
             for fn in wrappers.values():
                 fn.LAUNCHES = 0
             flows[label].clear()
+            if i == 2:
+                short[label] = 0
             _, n = counted_syncs(lambda: feed_frame(node, i, frame, h))
             syncs[label] += n
             for k, fn in wrappers.items():
@@ -2041,9 +2085,12 @@ def graph_mode(dev, name: str) -> dict:
     check(launches["graph"] == launches["eager"],
           f"{name}: launches {launches['graph']} replayed, {launches['eager']} eager")
     expected = GRAPH_KERNELS[name]
-    check(all(launches["graph"][k] >= GRAPH_FRAMES if k in expected else launches["graph"][k] == 0
+    least = {k: (short["graph"] if k == _G else GRAPH_FRAMES) if k in expected else 0 for k in wrappers}
+    check(short["graph"] == short["eager"] and (short["graph"] > 0) == (_G in expected),
+          f"{name}: {short} short-range frames")
+    check(all(launches["graph"][k] >= least[k] if k in expected else launches["graph"][k] == 0
               for k in wrappers),
-          f"{name}: launches {launches['graph']}, expected {sorted(expected)} each frame and no other")
+          f"{name}: launches {launches['graph']}, expected at least {least} and no other")
     check(syncs["graph"] == GRAPH_FRAMES, f"{name}: {syncs['graph']} host synchronisations in {GRAPH_FRAMES} frames")
     check(runner.replays - replays == GRAPH_FRAMES and runner.captures == captures,
           f"{name}: {runner.replays - replays} replays, {runner.captures - captures} captures")
@@ -2186,8 +2233,8 @@ def check_pipeline_batch(dev, pipe, prev, curr, truth, gen) -> dict:
     against the per-pair ``get_rt`` on the same hypotheses."""
     import torch
 
-    from mrs_optic_flow_tpu_torch.geometry.batched import draw_gumbel, get_rt_batch, gumbel_top4
-    from mrs_optic_flow_tpu_torch.geometry.motion import get_rt
+    from mrs_optic_flow_tpu_torch.geometry.batched import draw_gumbel, get_rt_batch, get_rt_batch_ref, gumbel_top4
+    from mrs_optic_flow_tpu_torch.geometry.motion import get_rt, get_rt_ref
 
     b = prev.shape[0]
     heights = torch.full((b,), HEIGHT, device=dev)
@@ -2202,7 +2249,7 @@ def check_pipeline_batch(dev, pipe, prev, curr, truth, gen) -> dict:
     with no_host_sync(dev):
         out = pipe.step_pre(prev, curr, heights, dts, rates, c2b, gumbel=gumbel)
     launches = {k: fn.LAUNCHES for k, fn in wrappers.items()}
-    check(launches["phase_correlate_frames"] == 1, f"step_pre launches {launches}")
+    check(launches["phase_correlate_frames"] == 1 and launches["get_rt"] == 1, f"step_pre launches {launches}")
     ok = out.ok.cpu().numpy()
     tran = out.tran.cpu().numpy()
     emax = worst_err(tran, truth, ok)
@@ -2222,11 +2269,13 @@ def check_pipeline_batch(dev, pipe, prev, curr, truth, gen) -> dict:
         x = dict(shifts=shifts.to(dtype), heights=heights[:s].to(dtype), dts=dts[:s].to(dtype),
                  cam=pipe._cam.to(dtype), c2b=c2b.to(dtype), rates=rates[:s].to(dtype))
         kw = dict(frame_size=pipe.frame_size, patch=pipe.sample_point_size, ransac_iterations=iters)
+        # kernel G takes float32; float64 runs the plain versions on the card
+        batch_fn, pair_fn = (get_rt_batch, get_rt) if dtype == torch.float32 else (get_rt_batch_ref, get_rt_ref)
         with no_host_sync(dev):
-            sub = get_rt_batch(x["shifts"], x["heights"], x["dts"], pipe.ul_x, x["cam"], pipe._dist,
-                               x["c2b"], x["rates"], gumbel=g, **kw)
-            ones = [get_rt(x["shifts"][i], x["heights"][i], x["dts"][i], pipe.ul_x, x["cam"], pipe._dist,
-                           x["c2b"], x["rates"][i], hyp_idx=top4[:, :, i], **kw) for i in range(s)]
+            sub = batch_fn(x["shifts"], x["heights"], x["dts"], pipe.ul_x, x["cam"], pipe._dist,
+                           x["c2b"], x["rates"], gumbel=g, **kw)
+            ones = [pair_fn(x["shifts"][i], x["heights"][i], x["dts"][i], pipe.ul_x, x["cam"], pipe._dist,
+                            x["c2b"], x["rates"][i], hyp_idx=top4[:, :, i], **kw) for i in range(s)]
         sub_ok, sub_n, sub_tran, sub_rot = (v.cpu().numpy() for v in (sub.ok, sub.n_inliers, sub.tran, sub.rot))
         one_ok, one_n, one_tran, one_rot = (torch.stack(v).cpu().numpy() for v in zip(
             *((o.ok, o.n_inliers, o.tran, o.rot) for o in ones)))
@@ -4057,6 +4106,319 @@ def run_tools(dev, built: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: kernel G, getRT                                                    #
+# --------------------------------------------------------------------------- #
+
+#: phase 21's batched cases: pairs, and (windows, hypotheses)
+G_BATCHES = (1, 128, 512, 4096)
+G_SHAPES = ((16, 256), (64, 256), (16, 512), (64, 512))
+#: largest difference of G's refit homography from the plain version's,
+#: relative to the largest entry of the plain one: float32 rounding in
+#: reductions of another order
+G_H_RTOL = 1e-4
+#: G's tran [m/s] and rot against the plain version's, both float32: the
+#: 99th percentile of the ok pairs' largest differences within the bench's
+#: gate for two float32 geometries (``timed_twist_vs_cpu_mps``), and every
+#: one within the node's twist budget.  The decomposition takes square
+#: roots of minors of ``H^T H - I`` that vanish for a translation along an
+#: axis, so float32 rounding of ``h`` in the last place moves such a pair's
+#: twist by up to about 0.01 m/s, whichever the implementation (PERF.md)
+G_TWIST_P99, G_TWIST_TOL = 0.0075, TWIST_TOL
+#: the batches at which G repeats the plain version's summation orders on
+#: the card (``scripts/probe_torch_orders_torch.py``) and so equals it bit
+#: for bit, refit and twists too; at 128 cuBLAS's order for the refit's
+#: product is not known
+G_EXACT_BATCHES = (1, 512, 4096)
+#: phase 21's timed shapes, ``BxIxP``: the node's one pair (512 hypotheses
+#: given as rows, 16 windows) and the bench batch (4,096 pairs, 256 draws)
+G_TIMED = ("1x512x16", "4096x256x16")
+
+
+def g_windows(b: int, p: int, seed: int) -> dict:
+    """``b`` pairs of ``p`` window shifts [px] of a level camera (fx = fy =
+    420 at (376, 240), the 480 crop at 136) over flat ground: each pair its
+    own height (1-2.5 m), velocity (up to 1 m/s, vz up to 0.2) and yaw rate
+    (up to 0.5 rad/s) at dt 0.05 s, 0.02 px of noise, up to two outliers of
+    5-10 px and up to two NaN windows; pair 0 has no valid window, pair 1
+    dt = 0 (no finite 1/dt)."""
+    rng = np.random.default_rng(seed)
+    q = int(round(math.sqrt(p)))
+    patch = 480 // q
+    c = np.arange(q) * patch + patch // 2 + 136.0  # the crop's centres in the frame
+    gx, gy = np.meshgrid(c, np.arange(q) * patch + patch // 2.0)
+    x = (gx.reshape(-1) - 376.0) / FX
+    y = (gy.reshape(-1) - 240.0) / FY
+    h = rng.uniform(1.0, 2.5, b)
+    v = np.stack([rng.uniform(-1, 1, b), rng.uniform(-1, 1, b), rng.uniform(-0.2, 0.2, b)], -1)
+    yaw = rng.uniform(-0.5, 0.5, b) * DT
+    dts = np.full(b, DT)
+    shifts = np.empty((b, p, 2))
+    for i in range(b):
+        cz, sz = math.cos(yaw[i]), math.sin(yaw[i])
+        t = v[i] * DT / h[i]
+        hm = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1.0]]) + np.outer(t, [0, 0, 1.0])
+        w = hm @ np.stack([x, y, np.ones(p)])
+        shifts[i, :, 0] = (w[0] / w[2] - x) * FX
+        shifts[i, :, 1] = (w[1] / w[2] - y) * FY
+    shifts += rng.normal(0.0, 0.02, shifts.shape)
+    for i in range(b):
+        for k in rng.choice(p, rng.integers(0, 3), replace=False):
+            shifts[i, k] += rng.choice([-1, 1], 2) * rng.uniform(5, 10, 2)
+        shifts[i, rng.choice(p, rng.integers(0, 3), replace=False)] = np.nan
+    shifts[0] = np.nan
+    if b > 1:
+        dts[1] = 0.0
+    rates = np.zeros((b, 4))
+    rates[:, 2], rates[:, 3] = np.sin(yaw / 2), np.cos(yaw / 2)  # the IMU's rotation a frame
+    return {"shifts": shifts.astype(np.float32), "heights": h.astype(np.float32),
+            "dts": dts.astype(np.float32), "rates": rates.astype(np.float32),
+            "patch": patch}
+
+
+def g_compare(label: str, kern, plain, dec_best, dec_inl, dec_n, plain_h, exact: bool = False) -> dict:
+    """G's outputs against the plain version's: its RANSAC decisions and
+    ``ok`` bit for bit, its refit within G_H_RTOL, its twists within
+    G_TWIST_P99 (99th percentile) and G_TWIST_TOL; with ``exact`` its refit
+    and twists bit for bit too.  Every argument batch first."""
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    ok = np_(kern.ok)
+    check(np.array_equal(np_(kern.n_inliers).astype(np.int64), np_(dec_n).astype(np.int64)),
+          f"G {label}: n_inliers differ from the plain version's")
+    check(np.array_equal(np_(kern.inliers), np_(dec_inl)), f"G {label}: inlier sets differ")
+    if dec_best is not None:
+        check(np.array_equal(np_(kern.best).astype(np.int64), np_(dec_best).astype(np.int64)),
+              f"G {label}: best hypotheses differ")
+    check(np.array_equal(ok, np_(plain.ok)), f"G {label}: ok differs from the plain version's "
+          f"at {np.flatnonzero(ok != np_(plain.ok))[:8]}")
+    hk, hp = np_(kern.h).reshape(-1, 9).astype(np.float64), np_(plain_h).reshape(-1, 9).astype(np.float64)
+    h_rel = float((np.abs(hk - hp).max(-1) / np.abs(hp).max(-1))[ok].max(initial=0.0))
+    same = [np.array_equal(np_(getattr(kern, f))[i], np_(getattr(plain, f))[i], equal_nan=True)
+            for f in ("tran", "rot") for i in np.flatnonzero(ok)]
+    out = {"pairs": int(ok.size), "ok": int(ok.sum()), "h_rel": h_rel,
+           "h_equal": float((hk == hp).all(-1)[ok].mean()) if ok.any() else 1.0,
+           "twist_equal": float(np.mean(same)) if same else 1.0}
+    for name in ("tran", "rot"):
+        k, r = (np_(getattr(x, name)).astype(np.float64) for x in (kern, plain))
+        check(np.array_equal(np.isnan(k), np.isnan(r)), f"G {label}: {name} NaN patterns differ")
+        d = np.abs(k - r)[ok].max(-1) if ok.any() else np.zeros(1)
+        out.update({f"{name}_max": float(d.max()), f"{name}_p99": float(np.percentile(d, 99)),
+                    f"{name}_median": float(np.median(d))})
+    out["n_inliers_mean"] = float(np_(kern.n_inliers).astype(np.float64)[ok].mean()) if ok.any() else 0.0
+    say(f"  G [{label}]: {json.dumps(out)}")
+    check(h_rel <= G_H_RTOL, f"G {label}: refit differs by {h_rel} relative")
+    check(not exact or (out["h_equal"] == 1.0 and out["twist_equal"] == 1.0),
+          f"G {label}: not bit for bit the plain version (has torch's or cuBLAS's order changed? "
+          f"scripts/probe_torch_orders_torch.py)")
+    check(max(out["tran_p99"], out["rot_p99"]) <= G_TWIST_P99
+          and max(out["tran_max"], out["rot_max"]) <= G_TWIST_TOL,
+          f"G {label}: twists differ from the plain version's by {out}")
+    return out
+
+
+def g_camera(dev):
+    import torch
+
+    cam = torch.tensor([[FX, 0, 376.0], [0, FY, 240.0], [0, 0, 1.0]], dtype=torch.float32, device=dev)
+    dist = torch.tensor([-0.12, 0.03, 1e-3, -5e-4, 0.0], dtype=torch.float32, device=dev)
+    return cam, dist
+
+
+def check_get_rt_batched(dev, b: int, p: int, iters: int, case: int) -> dict:
+    """Phase 21, one batched case: G against the plain version on injected
+    draws with exact ties between two windows' draws in a quarter of the
+    hypotheses; with the lens distortion and a crop offset a pair on odd
+    cases."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.geometry.batched import (
+        _ransac_h_b, draw_gumbel, get_rt_batch_ref, ransac_best_b,
+    )
+    from mrs_optic_flow_tpu_torch.geometry.motion import rt_points
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import launch_get_rt
+
+    w = g_windows(b, p, seed=100 + case)
+    x = {k: torch.from_numpy(v).to(dev) for k, v in w.items() if k != "patch"}
+    cam, dist = g_camera(dev)
+    dist = dist if case % 2 else None
+    ul = (torch.full((b,), 136.0, device=dev) + torch.arange(b, device=dev) % 3) if case % 2 else 136.0
+    c2b = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(case)
+    g = draw_gumbel(iters, p, b, dev, gen)
+    g[: iters // 4, 3] = g[: iters // 4, 5]  # exact ties between two windows' draws
+    kw = dict(frame_size=480, patch=w["patch"], shifted_pts_thr=8, ransac_threshold=0.01)
+    args = (x["shifts"], x["heights"], x["dts"], ul, cam, dist, c2b, x["rates"])
+    kern = launch_get_rt(*args, gumbel=g, debug=True, **kw)
+    plain = get_rt_batch_ref(*args, gumbel=g, ransac_iterations=iters, **kw)
+    ax, ay, bx, by, valid, ok_pts = rt_points(x["shifts"], x["dts"], ul, cam, dist, frame_size=480,
+                                             patch=w["patch"], shifted_pts_thr=8)
+    dec = ransac_best_b(ax, ay, bx, by, valid, g, 0.01)
+    plain_h, _, _ = _ransac_h_b(ax, ay, bx, by, valid, g, 0.01)
+    return g_compare(f"B={b} P={p} I={iters}{' dist' if case % 2 else ''}", kern, plain,
+                     dec.best, dec.inliers.T, dec.n_inliers, plain_h, exact=b in G_EXACT_BATCHES)
+
+
+def flight_windows(dev, n_frames: int = 313) -> list:
+    """The window shifts and parameters the method-4 node's getRT receives on
+    each frame of the bench's 313-frame flight (``BENCHMARK.json``'s
+    ``node_default_flight`` traffic, seed 0), recorded on the eager chain."""
+    import torch
+
+    from bench_torch import traffic
+    from mrs_optic_flow_tpu_torch.config import NodeConfig
+    from mrs_optic_flow_tpu_torch.runtime import node as node_mod
+    from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
+    from mrs_optic_flow_tpu_torch.runtime.stream import FrameStream
+
+    cell = next(w for w in json.loads((REPO / "BENCHMARK.json").read_text())["workloads"]
+                if w["name"] == "node_default_flight")
+    args = dict(cell["traffic"]["profile_args"])
+    sim, samples, frames = traffic.flight(cell["traffic"]["profile"], args, 0)
+    frames, samples = frames[:n_frames], samples[:n_frames]
+    sim.samples = samples
+    got = []
+    real = node_mod.get_rt
+
+    def recording(shifts, height, dt, ul, cam, dist, c2b, rate, **kw):
+        got.append(tuple(t.clone() if torch.is_tensor(t) else t
+                         for t in (shifts, height, dt, ul, cam, dist, c2b, rate)))
+        return real(shifts, height, dt, ul, cam, dist, c2b, rate, **kw)
+
+    node = eager_chain(OpticFlowNode(NodeConfig(), device=dev, publish=lambda t, m: None, log=say))
+    node.set_transforms(sim.c2b_quat)
+    node_mod.get_rt = recording
+    try:
+        stream = sim.events_into(FrameStream(node), frames)
+        stream.run()
+    finally:
+        node_mod.get_rt = real
+    return got
+
+
+def check_get_rt_pairs(dev, windows: list) -> dict:
+    """Phase 21, per pair: G against the plain version on every recorded
+    frame's windows, 512 hypotheses drawn once a frame from a seeded
+    generator."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.geometry.homography import (
+        _dlt_rows, _solve_h_qr_null, draw_hypotheses, ransac_best,
+    )
+    from mrs_optic_flow_tpu_torch.geometry.motion import get_rt_ref, rt_points
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import GetRTOutputs, launch_get_rt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    kw = dict(frame_size=480, patch=120, shifted_pts_thr=8, ransac_threshold=0.01)
+    kern, plain, best, inl, n, plain_h = [], [], [], [], [], []
+    for shifts, height, dt, ul, cam, dist, c2b, rate in windows:
+        hyp = draw_hypotheses(torch.isfinite(shifts).all(-1), 512, gen)
+        kern.append(launch_get_rt(shifts[None], height.reshape(1), dt.reshape(1), ul, cam, dist, c2b,
+                                  rate[None], hyp_idx=hyp, debug=True, **kw))
+        plain.append(get_rt_ref(shifts, height, dt, ul, cam, dist, c2b, rate, hyp_idx=hyp, **kw))
+        ax, ay, bx, by, valid, _ = rt_points(shifts[None], dt.reshape(1), ul, cam, dist, frame_size=480,
+                                            patch=120, shifted_pts_thr=8)
+        src = torch.stack([ax[:, 0], ay[:, 0]], -1)
+        dst = torch.stack([bx[:, 0], by[:, 0]], -1)
+        src, dst, b_i, inliers, n_inl, seed = ransac_best(src, dst, valid[:, 0], hyp, 0.01)
+        h32 = _solve_h_qr_null(_dlt_rows(src, dst, inliers.to(src.dtype)), seed)
+        plain_h.append(torch.where(n_inl >= 4, h32, torch.eye(3, device=dev)))
+        best.append(b_i.reshape(1))
+        inl.append(inliers[None])
+        n.append(n_inl.reshape(1))
+
+    k = GetRTOutputs(*(torch.cat([r[i] for r in kern]) for i in range(9)))
+    pl = type(plain[0])(*(torch.stack([r[i] for r in plain]) for i in range(6)))
+    return g_compare(f"{len(windows)} flight frames, per pair", k, pl, torch.cat(best), torch.cat(inl),
+                     torch.cat(n), torch.stack(plain_h))
+
+
+def time_get_rt(dev, label: str) -> dict:
+    """Phase 21's times at one of G_TIMED (``BxIxP``, the inputs of
+    ``scripts/tune_get_rt_kernel_torch.py::case_inputs``): G's own device
+    time and its wrapper (``launch_get_rt``, draws given), the entry point
+    with its draws made from a generator (``motion.get_rt`` /
+    ``batched.get_rt_batch``), the plain version on the same draws through
+    its calls and by its own device time, and the bound
+    (``scripts/profile_geometry_torch.py::geometry_work``)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.geometry.batched import get_rt_batch, get_rt_batch_ref
+    from mrs_optic_flow_tpu_torch.geometry.motion import get_rt, get_rt_ref
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import launch_get_rt
+    from mrs_optic_flow_tpu_torch.utils.benchlib import bound_of
+    from scripts.profile_geometry_torch import geometry_work
+    from scripts.tune_get_rt_kernel_torch import case_inputs, parse
+
+    b, iters, p = parse(label)
+    args, kw = case_inputs(dev, b, iters, p)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    common = dict(frame_size=kw["frame_size"], patch=kw["patch"])
+    if b == 1:  # the node's path: one pair, its hypotheses drawn by torch
+        pair = (args[0][0], args[1][0], args[2][0], *args[3:7], args[7][0])
+
+        def entry():
+            return tuple(get_rt(*pair, generator=gen, ransac_iterations=iters, **common))
+
+        def plain():
+            return tuple(get_rt_ref(*pair, hyp_idx=kw["hyp_idx"], **common))
+    else:
+        def entry():
+            return tuple(get_rt_batch(*args, generator=gen, ransac_iterations=iters, **common))
+
+        def plain():
+            return tuple(get_rt_batch_ref(*args, gumbel=kw["gumbel"], ransac_iterations=iters, **common))
+
+    def wrapper():
+        return launch_get_rt(*args, **kw)
+
+    by_name = own_by_kernel(wrapper, 50)
+    entry_by_name = own_by_kernel(entry, 20)
+    plain_by_name = own_by_kernel(plain, 2)
+    work = geometry_work(iters, p, b)
+    bound_ms, by = bound_of(work["ops"], work["bytes"])
+    out = {"ms": time_cuda(wrapper, 100), "own_ms": sum(ms for _, ms in by_name.values()),
+           "launches_a_call": sum(k for k, _ in by_name.values()),
+           "entry_ms": time_cuda(entry, 50),
+           "entry_own_ms": sum(ms for _, ms in entry_by_name.values()),
+           "entry_launches": sum(k for k, _ in entry_by_name.values()),
+           "plain_ms": time_cuda(plain, 5 if b > 1 else 20),
+           "plain_own_ms": sum(ms for _, ms in plain_by_name.values()),
+           "plain_launches": sum(k for k, _ in plain_by_name.values()),
+           "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    say(f"  G [{label}]: " + json.dumps(out))
+    check(out["launches_a_call"] == 1, f"G [{label}]: {out['launches_a_call']} launches a wrapper call")
+    return out
+
+
+def run_get_rt_kernel(dev) -> dict:
+    """Phase 21.  Returns its line's object: ``err`` (the largest twist
+    difference from the plain version), ``err_p99`` (the largest 99th
+    percentile of a case), each case's comparison and ``G_TIMED``'s
+    times."""
+    t0 = time.perf_counter()
+    out = {"batched": {}}
+    case = 0
+    for b in G_BATCHES:
+        for p, iters in G_SHAPES:
+            out["batched"][f"{b}x{iters}x{p}"] = check_get_rt_batched(dev, b, p, iters, case)
+            case += 1
+    out["pairs"] = check_get_rt_pairs(dev, flight_windows(dev))
+    rows = list(out["batched"].values()) + [out["pairs"]]
+    out["err"] = max(max(r["tran_max"], r["rot_max"]) for r in rows)
+    out["err_p99"] = max(max(r["tran_p99"], r["rot_p99"]) for r in rows)
+    out["timed"] = {label: time_get_rt(dev, label) for label in G_TIMED}
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[21 get_rt] {out['seconds']:.1f} s: kernel G equal to the plain version's RANSAC decisions "
+        f"in {len(rows)} cases, twists within {out['err']:.3g} of its (99th percentile "
+        f"{out['err_p99']:.3g}); " + json.dumps(out["timed"]))
+    return out
+
+
 def twist_diff(pub_a, pub_b) -> float:
     """Largest difference [m/s] between two runs' twists, topic by topic and
     stamp by stamp (x and y; both runs must publish the same stamps)."""
@@ -4110,7 +4472,8 @@ def main() -> int:
     ms_a, own_a, plain_a, lib_a, lib_own_a = measure_throughput(dev)
     if "phase_correlate_frames" in BASELINES:
         compare_kernel_a(dev)
-    launches_a = run_node(dev)
+    launches_node = run_node(dev)
+    launches_a = launches_node["phase_correlate_frames"]
     check(launches_a >= N_FRAMES - 1, f"{launches_a} kernel launches for {N_FRAMES - 1} processed frames")
     b = check_peak_kernel(dev)
     c = check_sad_kernel(dev)
@@ -4120,6 +4483,7 @@ def main() -> int:
     e = check_fused_kernel(dev)
     launches_d, _ = run_long_range_nodes(dev)
     run_frame_graphs(dev)
+    g = run_get_rt_kernel(dev)
     check_sad_large(dev)
     check_tf32(dev)
     serving = run_serving(dev)
@@ -4145,6 +4509,7 @@ def main() -> int:
     b1 = b["1x480"]
     d60 = d["64x60 u8"]
     e120 = e["16x120"]
+    g1, g4096 = g["timed"]["1x512x16"], g["timed"]["4096x256x16"]
     rows = {
         "phase_correlate_frames": (launches_a, err_a, ms_a, own_a, plain_a, lib_a, lib_own_a,
                                    bound("phase_correlate_frames", b=1, n=120, q=4, itemsize=1)),
@@ -4158,7 +4523,16 @@ def main() -> int:
         "phase_correlate_fused": (e["launches"], e["err"], e120["ms"], e120["own_ms"],
                                   e120["plain_ms"], e120["library_ms"], e120["library_own_ms"],
                                   (e120["bound_ms"], e120["bound_by"])),
+        # at the node's shape, one pair of 16 windows, 512 hypotheses; no
+        # PyTorch call computes getRT
+        "get_rt": (launches_node["get_rt"], g["err"], g1["ms"], g1["own_ms"], g1["plain_ms"], None,
+                   None, (g1["bound_ms"], g1["bound_by"])),
     }
+    # kernel G also at the bench's batch (B = 4096, 256 hypotheses), and the
+    # 99th percentile of its twists' difference from the plain version
+    extra = {"get_rt": {"max_abs_err_p99": g["err_p99"], "plain_own_ms": g1["plain_own_ms"], "b4096": {
+        k: g4096[k] for k in ("ms", "own_ms", "plain_ms", "plain_own_ms", "entry_ms", "entry_own_ms",
+                              "bound_ms", "bound_by")}}}
     say(json.dumps({"serving": {"card": smi, **serving}}))
     say(json.dumps({"flights": {"card": smi, **flights}}))
     say(json.dumps({"kernels": [{
@@ -4177,6 +4551,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": lib_ms,
         "library_own_ms": lib_own,
+        **extra.get(name, {}),
     } for name, (launches, err, ms, own, plain_ms, lib_ms, lib_own, (bound_ms, bound_by))
         in rows.items()]}))
     say(json.dumps({"ok": True, "device": {

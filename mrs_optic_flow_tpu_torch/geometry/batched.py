@@ -3,9 +3,12 @@ launches (port of :mod:`mrs_optic_flow_tpu.geometry.batched`).
 
 Only the RANSAC stage is this module's own; the points before it and the
 decomposition and solution selection after it are the ones the per-pair
-:func:`~.motion.get_rt` runs (:func:`~.motion.rt_points`,
+:func:`~.motion.get_rt_ref` runs (:func:`~.motion.rt_points`,
 :func:`~.motion.rt_solution`), so both have the same semantics and gates.
-The stage follows the JAX package's batched function:
+:func:`get_rt_batch_ref` is the plain version of kernel G
+(``ops/cuda_kernels.py::get_rt``); :func:`get_rt_batch` runs it on CPU
+tensors and launches G on CUDA tensors.  The stage follows the JAX package's
+batched function:
 
 - The RANSAC draws of the whole batch are ONE Gumbel tensor ``[iterations,
   P, B]``; each hypothesis takes the top 4 of its column by four rounds of
@@ -33,12 +36,13 @@ RANSAC ``:558``.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Union
+from typing import List, NamedTuple, Optional, Union
 
 import torch
 
 from mrs_optic_flow_tpu_torch.geometry.homography import _dlt_rows, _solve_h_qr_null
 from mrs_optic_flow_tpu_torch.geometry.motion import GetRTResult, rt_points, rt_solution
+from mrs_optic_flow_tpu_torch.ops import cuda_kernels
 
 # ---------------------------------------------------------------------------
 # the batched RANSAC stage
@@ -118,10 +122,20 @@ def gumbel_top4(gumbel: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.stack(picks, dim=1)
 
 
-def _ransac_h_b(ax, ay, bx, by, valid, gumbel, threshold: float):
-    """RANSAC homography over the batch.  ``ax/ay`` ``[P, 1]`` (shared grid)
-    or ``[P, B]``; ``bx/by/valid`` ``[P, B]``; ``gumbel`` ``[I, P, B]``.
-    Returns (h ``[B, 3, 3]``, n_inliers ``[B]`` int32, ok ``[B]``)."""
+class RansacBest(NamedTuple):
+    """The RANSAC stage's decisions over the batch, before the refit."""
+
+    points: tuple  # (ax, ay, bx, by) [P, B] each, zero at an invalid window
+    best: torch.Tensor  # [B] the best hypothesis (most inliers, lowest index)
+    inliers: torch.Tensor  # [P, B] bool, its inlier set
+    n_inliers: torch.Tensor  # [B] int32
+    h_seed: torch.Tensor  # [9, B] its homography
+
+
+def ransac_best_b(ax, ay, bx, by, valid, gumbel, threshold: float) -> RansacBest:
+    """The hypotheses of the batch scored, and the best one a pair: ``ax/ay``
+    ``[P, 1]`` (shared grid) or ``[P, B]``; ``bx/by/valid`` ``[P, B]``;
+    ``gumbel`` ``[I, P, B]``."""
     p, b = bx.shape
     zero = torch.zeros((), dtype=bx.dtype, device=bx.device)
     bxv = torch.where(valid, bx, zero)
@@ -142,7 +156,16 @@ def _ransac_h_b(ax, ay, bx, by, valid, gumbel, threshold: float):
     inliers = inls.gather(0, best[None, None, :].expand(1, p, b))[0]  # [P, B]
     n_inl = counts.gather(0, best[None])[0].to(torch.int32)
     h_seed = hs.gather(0, best[None, None, :].expand(1, 9, b))[0]  # [9, B]
+    return RansacBest((axv, ayv, bxv, byv), best, inliers, n_inl, h_seed)
 
+
+def _ransac_h_b(ax, ay, bx, by, valid, gumbel, threshold: float):
+    """RANSAC homography over the batch (:func:`ransac_best_b`, then the
+    refit on the best hypothesis's inliers).  Returns (h ``[B, 3, 3]``,
+    n_inliers ``[B]`` int32, ok ``[B]``)."""
+    b = bx.shape[1]
+    (axv, ayv, bxv, byv), _, inliers, n_inl, h_seed = ransac_best_b(ax, ay, bx, by, valid, gumbel,
+                                                                    threshold)
     src = torch.stack([axv.T, ayv.T], dim=-1)  # [B, P, 2]
     dst = torch.stack([bxv.T, byv.T], dim=-1)
     a_full = _dlt_rows(src, dst, inliers.T.to(bx.dtype))  # [B, 2P, 9]
@@ -158,6 +181,50 @@ def _ransac_h_b(ax, ay, bx, by, valid, gumbel, threshold: float):
 
 
 def get_rt_batch(
+    shifts: torch.Tensor,  # [B, P, 2]
+    heights: torch.Tensor,  # [B]
+    dts: torch.Tensor,  # [B]
+    ul_corner_x: Union[float, torch.Tensor],  # scalar or [B]
+    camera_matrix: torch.Tensor,  # [3, 3]
+    dist_coeffs: Optional[torch.Tensor],  # [5], or None for a distortion-free camera
+    c2b_quat: torch.Tensor,  # [4]
+    ang_rate_quats: torch.Tensor,  # [B, 4]
+    *,
+    frame_size: int,
+    patch: int,
+    shifted_pts_thr: int = 8,
+    ransac_threshold: float = 0.01,
+    ransac_iterations: int = 512,
+    gumbel: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> GetRTResult:
+    """Batched ``getRT`` (:func:`get_rt_batch_ref`'s contract).  CPU tensors
+    run :func:`get_rt_batch_ref`.  CUDA tensors draw the Gumbel tensor as it
+    does (:func:`draw_gumbel` from ``generator``, unless ``gumbel`` gives
+    it) and launch kernel G once (``ops/cuda_kernels.py::get_rt``), which
+    takes float32 only."""
+    kw = dict(frame_size=frame_size, patch=patch, shifted_pts_thr=shifted_pts_thr,
+              ransac_threshold=ransac_threshold)
+    if shifts.device.type == "cpu":
+        return get_rt_batch_ref(shifts, heights, dts, ul_corner_x, camera_matrix, dist_coeffs,
+                                c2b_quat, ang_rate_quats, ransac_iterations=ransac_iterations,
+                                gumbel=gumbel, generator=generator, **kw)
+    b, p = shifts.shape[:2]
+    if gumbel is None:
+        gumbel = draw_gumbel(ransac_iterations, p, b, shifts.device, generator)
+    elif tuple(gumbel.shape) != (ransac_iterations, p, b):
+        raise ValueError(f"gumbel has shape {tuple(gumbel.shape)}, expected "
+                         f"{(ransac_iterations, p, b)}")
+    res = cuda_kernels.get_rt(
+        shifts.contiguous(), heights.contiguous(), dts.contiguous(),
+        ul_corner_x.contiguous() if torch.is_tensor(ul_corner_x) else ul_corner_x,
+        camera_matrix.contiguous(), None if dist_coeffs is None else dist_coeffs.contiguous(),
+        c2b_quat.contiguous(), ang_rate_quats.contiguous(), gumbel=gumbel, **kw,
+    )
+    return GetRTResult(*res[:6])
+
+
+def get_rt_batch_ref(
     shifts: torch.Tensor,  # [B, P, 2]
     heights: torch.Tensor,  # [B]
     dts: torch.Tensor,  # [B]

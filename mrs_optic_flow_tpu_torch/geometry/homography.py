@@ -160,6 +160,23 @@ class HomographyResult(NamedTuple):
     ok: torch.Tensor  # 0-dim bool
 
 
+def ransac_best(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor, hyp_idx: torch.Tensor,
+                threshold: float) -> tuple:
+    """The hypotheses ``hyp_idx`` ``[I, 4]`` scored over the masked points,
+    and the best one: ``(src, dst)`` zero at an invalid point, the best
+    hypothesis (0-dim: most inliers, lowest index), its inlier set ``[N]``,
+    its inlier count (0-dim int64) and its homography ``[3, 3]``."""
+    zero = torch.zeros((), dtype=src.dtype, device=src.device)
+    src = torch.where(valid[:, None], src, zero)
+    dst = torch.where(valid[:, None], dst, zero)
+    hs = _solve_h4(src[hyp_idx], dst[hyp_idx])  # [iters, 3, 3]
+    errs = torch.sum((_project(hs[:, None], src[None]) - dst[None]) ** 2, dim=-1)
+    inls = (errs < threshold * threshold) & valid[None, :]
+    counts = inls.sum(dim=-1)
+    best = torch.argmax(counts)
+    return src, dst, best, _take(inls, best), _take(counts, best), _take(hs, best)
+
+
 def find_homography_ransac(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -178,19 +195,10 @@ def find_homography_ransac(
     hypotheses' point indices; without it they are drawn from ``generator``
     by :func:`draw_hypotheses`.
     """
-    zero = torch.zeros((), dtype=src.dtype, device=src.device)
-    src = torch.where(valid[:, None], src, zero)
-    dst = torch.where(valid[:, None], dst, zero)
     if hyp_idx is None:
         hyp_idx = draw_hypotheses(valid, iterations, generator)
-    hs = _solve_h4(src[hyp_idx], dst[hyp_idx])  # [iters, 3, 3]
-    errs = torch.sum((_project(hs[:, None], src[None]) - dst[None]) ** 2, dim=-1)
-    inls = (errs < threshold * threshold) & valid[None, :]
-    counts = inls.sum(dim=-1)
-    best = torch.argmax(counts)
-    inliers = _take(inls, best)
-    n_inl = _take(counts, best)
-    h = _solve_h_qr_null(_dlt_rows(src, dst, inliers.to(src.dtype)), _take(hs, best))
+    src, dst, _, inliers, n_inl, h_seed = ransac_best(src, dst, valid, hyp_idx, threshold)
+    h = _solve_h_qr_null(_dlt_rows(src, dst, inliers.to(src.dtype)), h_seed)
     ok = n_inl >= 4
     h = torch.where(ok, h, torch.eye(3, dtype=src.dtype, device=src.device))
     return HomographyResult(h=h, inliers=inliers, n_inliers=n_inl, ok=ok)

@@ -7,11 +7,14 @@ frame stays on the device.
 
 Each chain has one implementation, batch-first: :func:`get_2dt_batch`, and
 getRT's points (:func:`rt_points`) and its decomposition and solution
-selection (:func:`rt_solution`).  The per-pair :func:`get_rt` and
+selection (:func:`rt_solution`).  The per-pair :func:`get_rt_ref` and
 :func:`get_2dt` are their one-sample case; only the RANSAC stage differs
-between :func:`get_rt` (:func:`~.homography.find_homography_ransac`) and the
-batched :func:`~.batched.get_rt_batch`.  Nothing here reads a value back to
-the host or builds a constant from it.
+between :func:`get_rt_ref` (:func:`~.homography.find_homography_ransac`) and
+the batched :func:`~.batched.get_rt_batch_ref`.  These torch functions are
+the plain version of kernel G (``ops/cuda_kernels.py::get_rt``,
+``csrc/get_rt.cu``): :func:`get_rt` runs them on CPU tensors and launches G
+on CUDA tensors.  Nothing here reads a value back to the host or builds a
+constant from it.
 
 The documented deviations of the JAX module carry over: the rotation axis is
 rotated into the body frame without the camera->base translation
@@ -29,7 +32,11 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from mrs_optic_flow_tpu_torch.geometry.homography import decompose_homography, find_homography_ransac
+from mrs_optic_flow_tpu_torch.geometry.homography import (
+    decompose_homography,
+    draw_hypotheses,
+    find_homography_ransac,
+)
 from mrs_optic_flow_tpu_torch.geometry.rotations import (
     quat_angle,
     quat_axis_angle,
@@ -39,6 +46,7 @@ from mrs_optic_flow_tpu_torch.geometry.rotations import (
     quat_rotate,
 )
 from mrs_optic_flow_tpu_torch.geometry.undistort import undistort_xy
+from mrs_optic_flow_tpu_torch.ops import cuda_kernels
 
 #: ratio-2 long-range mutual-agreement gate in px, ``LONGRANGE_INLIER_THRESHOLD``
 #: (``src/optic_flow.cpp:34``, used at ``:456`` with a strict ``<``)
@@ -185,6 +193,45 @@ def _one(x, like: torch.Tensor) -> torch.Tensor:
 
 
 def get_rt(
+    shifts: torch.Tensor,
+    height: torch.Tensor,
+    dt: torch.Tensor,
+    ul_corner_x: float,
+    camera_matrix: torch.Tensor,
+    dist_coeffs: torch.Tensor,
+    c2b_quat: torch.Tensor,
+    ang_rate_quat: torch.Tensor,
+    *,
+    frame_size: int,
+    patch: int,
+    generator: Optional[torch.Generator] = None,
+    hyp_idx: Optional[torch.Tensor] = None,
+    shifted_pts_thr: int = 8,
+    ransac_threshold: float = 0.01,
+    ransac_iterations: int = 512,
+) -> GetRTResult:
+    """``getRT`` of one pair (:func:`get_rt_ref`'s contract).  CPU tensors
+    run :func:`get_rt_ref`.  CUDA tensors draw the hypotheses as it does
+    (:func:`~.homography.draw_hypotheses` from ``generator``, unless
+    ``hyp_idx`` gives them) and launch kernel G once
+    (``ops/cuda_kernels.py::get_rt``), which takes float32 only."""
+    kw = dict(frame_size=frame_size, patch=patch, shifted_pts_thr=shifted_pts_thr,
+              ransac_threshold=ransac_threshold)
+    if shifts.device.type == "cpu":
+        return get_rt_ref(shifts, height, dt, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat,
+                          ang_rate_quat, generator=generator, hyp_idx=hyp_idx,
+                          ransac_iterations=ransac_iterations, **kw)
+    if hyp_idx is None:
+        hyp_idx = draw_hypotheses(torch.isfinite(shifts).all(dim=-1), ransac_iterations, generator)
+    res = cuda_kernels.get_rt(
+        shifts.contiguous()[None], _one(height, shifts), _one(dt, shifts), ul_corner_x,
+        camera_matrix.contiguous(), None if dist_coeffs is None else dist_coeffs.contiguous(),
+        c2b_quat.contiguous(), ang_rate_quat.contiguous()[None], hyp_idx=hyp_idx.contiguous(), **kw,
+    )
+    return GetRTResult(*(x[0] for x in res[:6]))
+
+
+def get_rt_ref(
     shifts: torch.Tensor,
     height: torch.Tensor,
     dt: torch.Tensor,

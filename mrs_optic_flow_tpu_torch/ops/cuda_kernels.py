@@ -23,6 +23,12 @@ Pallas SAD kernel in :mod:`mrs_optic_flow_tpu.ops.block_matching`:
   complex inverse FFT and peak of forward spectra that the wrapper computes
   with two float32 matrix products (``csrc/phase_correlate_fused.cu``).
 
+Kernel G, :func:`get_rt`, replaces no TPU kernel (the JAX package computes
+getRT in XLA): window shifts to twist in one launch, in place of the plain
+version's ~1,000 (``csrc/get_rt.cu``); its plain version is the torch
+geometry, :func:`~mrs_optic_flow_tpu_torch.geometry.motion.get_rt_ref` and
+:func:`~mrs_optic_flow_tpu_torch.geometry.batched.get_rt_batch_ref`.
+
 Each source compiles with ``nvcc`` for ``sm_90a`` into a library of its own
 under ``build/torch_kernels/`` at first use, and is bound with ctypes.  The
 headers in ``csrc/`` hold device code that several sources share: the peak
@@ -69,13 +75,18 @@ SOURCES = {
     "sad_search": "sad_search.cu",
     "phase_correlate_fullfused": "phase_correlate_fullfused.cu",
     "phase_correlate_fused": "phase_correlate_fused.cu",
+    "get_rt": "get_rt.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+#: flags of one source beside NVCC_FLAGS: kernel G keeps the plain
+#: version's float32 rounding, so nothing may contract into a fused
+#: multiply-add
+SOURCE_FLAGS = {"get_rt": ("-fmad=false",)}
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: kernel name -> {C function: (restype, argtypes)}
 _SIGNATURES = {
     "phase_correlate_frames": {
@@ -117,6 +128,15 @@ _SIGNATURES = {
         # maxval, stream
         "pcfu_phase_correlate_fused": (_I, [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     },
+    "get_rt": {
+        "grt_smem_bytes": (_LL, [_I, _I, _I]),
+        "grt_block_threads": (_I, [_I, _I, _I, _I]),
+        # shifts, heights, dts, ulx, ulx_scalar, cam, dist, c2b, rate, hyp,
+        # gumbel, g_si, g_sp, b, p, q, patch, iters, thr_pts, thr2, ok, rot,
+        # tran, n_inl, n_inl64, ang_diff, rejected, best, inl, h, stream
+        "grt_get_rt": (_I, [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I,
+                            _I, _I, _F, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),
+    },
 }
 
 
@@ -155,7 +175,8 @@ def start_build(names: Optional[Iterable[str]] = None, *,
     for name in names or SOURCES:
         out = variant_path(name, defines) if defines else library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), *flags, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out)
     return jobs
@@ -1019,3 +1040,221 @@ def phase_correlate_fused(
 
 
 phase_correlate_fused.LAUNCHES = 0
+
+
+# --------------------------------------------------------------------------- #
+# kernel G: getRT, window shifts to twist                                      #
+# --------------------------------------------------------------------------- #
+
+#: threads a block of kernel G at most (``grt::kMaxThreads``, its latency
+#: shape), and its throughput shape for more pairs than SMs: threads a block
+#: and blocks an SM (``GRT_WIDE_THREADS``, ``GRT_WIDE_BLOCKS``)
+GRT_MAX_THREADS = 256
+GRT_WIDE_SHAPE = (64, 8)
+
+
+def grt_smem_bytes(p: int, threads: int, batched: bool) -> int:
+    """Kernel G's dynamic shared memory for a block of ``threads`` at ``p``
+    windows (``grt::smem_bytes`` in ``csrc/get_rt.cu``): the refit's
+    system ``[2P, 9]`` and Householder vector ``[2P]``, on the batched path
+    each thread's row of draws ``[P + 1]``, the four point components (all
+    float32) and the valid and inlier flags (18,976 B batched at P = 16,
+    256 threads)."""
+    return 4 * 20 * p + (4 * threads * (p + 1) if batched else 0) + 4 * 4 * p + (2 * p + 7) // 8 * 8
+
+
+def grt_block_threads(p: int, iters: int, batched: bool, smem_limit: int,
+                      most: int = GRT_MAX_THREADS) -> int:
+    """Kernel G's threads a block (``grt::block_threads``): one a hypothesis
+    up to ``most`` in whole warps, fewer where the staged draws pass
+    ``smem_limit``; 0 where not even one warp fits."""
+    t = -(-min(iters, most) // 32) * 32
+    while t > 0 and grt_smem_bytes(p, t, batched) > smem_limit:
+        t -= 32
+    return t
+
+
+class GetRTOutputs(NamedTuple):
+    """Kernel G's outputs, batch first: the fields of
+    :class:`~mrs_optic_flow_tpu_torch.geometry.motion.GetRTResult`, and with
+    ``debug`` the best hypothesis ``[B]`` int32, its inlier set ``[B, P]``
+    bool and the refit homography ``[B, 3, 3]`` (None without)."""
+
+    ok: torch.Tensor
+    rot: torch.Tensor
+    tran: torch.Tensor
+    n_inliers: torch.Tensor
+    ang_diff: torch.Tensor
+    ang_diff_rejected: torch.Tensor
+    best: Optional[torch.Tensor] = None
+    inliers: Optional[torch.Tensor] = None
+    h: Optional[torch.Tensor] = None
+
+
+def _f32(what: str, x: torch.Tensor, shape: tuple) -> None:
+    if x.dtype != torch.float32 or tuple(x.shape) != shape:
+        raise ValueError(f"get_rt: expected {what} float32 {shape}, got {x.dtype} {tuple(x.shape)}")
+
+
+def get_rt(
+    shifts: torch.Tensor,
+    heights: torch.Tensor,
+    dts: torch.Tensor,
+    ul_corner_x,
+    camera_matrix: torch.Tensor,
+    dist_coeffs: Optional[torch.Tensor],
+    c2b_quat: torch.Tensor,
+    ang_rate_quats: torch.Tensor,
+    *,
+    frame_size: int,
+    patch: int,
+    shifted_pts_thr: int = 8,
+    ransac_threshold: float = 0.01,
+    hyp_idx: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None,
+):
+    """Kernel G: getRT of ``[B, P, 2]`` window shifts -> the fields of
+    :class:`~mrs_optic_flow_tpu_torch.geometry.motion.GetRTResult`, batch
+    first (a ``GetRTOutputs`` without the debug fields).  The hypotheses are
+    ``hyp_idx`` ``[I, 4]`` point indices (per pair: ``B = 1``, normalized by
+    h22, ``n_inliers`` int64) or the top 4 of each column of ``gumbel``
+    ``[I, P, B]`` (batched: normalized by the largest entry, ``n_inliers``
+    int32), exactly one of the two.
+
+    CPU tensors run the plain version (``geometry.motion.get_rt_ref`` or
+    ``geometry.batched.get_rt_batch_ref``).  CUDA tensors launch
+    ``csrc/get_rt.cu`` on the current stream, one block a pair; each launch
+    adds one to ``get_rt.LAUNCHES``.
+    """
+    kw = dict(frame_size=frame_size, patch=patch, shifted_pts_thr=shifted_pts_thr,
+              ransac_threshold=ransac_threshold)
+    if shifts.device.type == "cpu":
+        from mrs_optic_flow_tpu_torch.geometry import batched, motion  # noqa: PLC0415 (a cycle)
+
+        if (hyp_idx is None) == (gumbel is None):
+            raise ValueError("get_rt: give exactly one of hyp_idx and gumbel")
+        if hyp_idx is not None:
+            res = motion.get_rt_ref(shifts[0], heights[0], dts[0], ul_corner_x, camera_matrix,
+                                    dist_coeffs, c2b_quat, ang_rate_quats[0], hyp_idx=hyp_idx, **kw)
+            return GetRTOutputs(*(x[None] for x in res))
+        res = batched.get_rt_batch_ref(shifts, heights, dts, ul_corner_x, camera_matrix, dist_coeffs,
+                                       c2b_quat, ang_rate_quats, gumbel=gumbel,
+                                       ransac_iterations=gumbel.shape[0], **kw)
+        return GetRTOutputs(*res)
+    out = launch_get_rt(shifts, heights, dts, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat,
+                        ang_rate_quats, hyp_idx=hyp_idx, gumbel=gumbel, **kw)
+    get_rt.LAUNCHES += 1
+    return out
+
+
+def launch_get_rt(
+    shifts: torch.Tensor,
+    heights: torch.Tensor,
+    dts: torch.Tensor,
+    ul_corner_x,
+    camera_matrix: torch.Tensor,
+    dist_coeffs: Optional[torch.Tensor],
+    c2b_quat: torch.Tensor,
+    ang_rate_quats: torch.Tensor,
+    *,
+    frame_size: int,
+    patch: int,
+    shifted_pts_thr: int = 8,
+    ransac_threshold: float = 0.01,
+    hyp_idx: Optional[torch.Tensor] = None,
+    gumbel: Optional[torch.Tensor] = None,
+    debug: bool = False,
+    lib: Optional[ctypes.CDLL] = None,
+) -> GetRTOutputs:
+    """Kernel G on CUDA tensors, with the checks of :func:`get_rt` and
+    without its launch count; ``debug`` also returns the best hypothesis,
+    its inlier set and the refit homography (for the comparison with the
+    plain version); ``lib`` is a variant of the shipped library
+    (:func:`load_variant`) or None for the shipped one."""
+    if shifts.ndim != 3 or shifts.shape[-1] != 2:
+        raise ValueError(f"get_rt: expected shifts [B, P, 2], got {tuple(shifts.shape)}")
+    b, p = shifts.shape[:2]
+    q = frame_size // patch
+    if p != q * q:
+        raise ValueError(f"get_rt: {p} windows, but a {frame_size} px frame of {patch} px "
+                         f"patches has {q * q}")
+    if p < 5:  # the refit needs 9 rows
+        raise ValueError(f"get_rt: kernel G takes 5 windows or more, not {p}")
+    _f32("shifts", shifts, (b, p, 2))
+    _f32("heights", heights, (b,))
+    _f32("dts", dts, (b,))
+    _f32("camera_matrix", camera_matrix, (3, 3))
+    _f32("c2b_quat", c2b_quat, (4,))
+    _f32("ang_rate_quats", ang_rate_quats, (b, 4))
+    if dist_coeffs is not None:
+        _f32("dist_coeffs", dist_coeffs, (5,))
+    if torch.is_tensor(ul_corner_x) and ul_corner_x.ndim:
+        _f32("ul_corner_x", ul_corner_x, (b,))
+    if (hyp_idx is None) == (gumbel is None):
+        raise ValueError("get_rt: give exactly one of hyp_idx and gumbel")
+    if hyp_idx is not None:
+        if b != 1 or hyp_idx.ndim != 2 or hyp_idx.shape[1] != 4 or hyp_idx.dtype not in (
+                torch.int64, torch.int32):
+            raise ValueError(f"get_rt: expected one pair and hyp_idx [I, 4] int64, got B = {b}, "
+                             f"{hyp_idx.dtype} {tuple(hyp_idx.shape)}")
+        iters = hyp_idx.shape[0]
+    else:
+        if gumbel.dtype != torch.float32 or gumbel.ndim != 3 or tuple(gumbel.shape[1:]) != (p, b):
+            raise ValueError(f"get_rt: expected gumbel float32 [I, {p}, {b}], got {gumbel.dtype} "
+                             f"{tuple(gumbel.shape)}")
+        if gumbel.stride(2) != 1:
+            raise ValueError("get_rt: gumbel must have unit stride in B")
+        iters = gumbel.shape[0]
+    if iters < 1:
+        raise ValueError("get_rt: no hypotheses")
+    # then the device: every tensor on the shifts' CUDA device, contiguous
+    # but the draws (a shard's slice of the batch's draws is a view)
+    extra = [t for t in (dist_coeffs, hyp_idx) if t is not None]
+    _check_cuda("get_rt", shifts, heights, dts, camera_matrix, c2b_quat, ang_rate_quats, *extra)
+    dev = shifts.device
+    if gumbel is not None and gumbel.device != dev:
+        raise ValueError(f"get_rt: gumbel on {gumbel.device}, the shifts on {dev}")
+    ulx, ulx_scalar = None, 0.0
+    if torch.is_tensor(ul_corner_x):
+        ulx = ul_corner_x.reshape(1).expand(b).contiguous() if ul_corner_x.ndim == 0 else ul_corner_x
+        _check_cuda("get_rt", shifts, ulx)
+    else:
+        ulx_scalar = float(ul_corner_x)
+    if hyp_idx is not None:
+        hyp_idx = hyp_idx.to(torch.int64)
+        g_si = g_sp = 0
+    else:
+        g_si, g_sp = gumbel.stride(0), gumbel.stride(1)
+    if not grt_block_threads(p, iters, gumbel is not None, _smem_limit(dev) - STATIC_SMEM_BYTES):
+        raise ValueError(f"get_rt: {p} windows do not fit kernel G's shared memory on {dev}")
+    lib = lib or load_library("get_rt")
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    rot = torch.empty((b, 4), dtype=torch.float32, device=dev)
+    tran = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    n_inl = torch.empty((b,), dtype=torch.int64 if hyp_idx is not None else torch.int32, device=dev)
+    ang_diff = torch.empty((b,), dtype=torch.float32, device=dev)
+    rejected = torch.empty((b,), dtype=torch.bool, device=dev)
+    best = inl = h = None
+    if debug:
+        best = torch.empty((b,), dtype=torch.int32, device=dev)
+        inl = torch.empty((b, p), dtype=torch.bool, device=dev)
+        h = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = lib.grt_get_rt(
+            shifts.data_ptr(), heights.data_ptr(), dts.data_ptr(), ptr(ulx), ulx_scalar,
+            camera_matrix.data_ptr(), ptr(dist_coeffs), c2b_quat.data_ptr(),
+            ang_rate_quats.data_ptr(), ptr(hyp_idx), ptr(gumbel), g_si, g_sp, b, p, q, patch,
+            iters, shifted_pts_thr, ransac_threshold * ransac_threshold, ok.data_ptr(),
+            rot.data_ptr(), tran.data_ptr(), n_inl.data_ptr(), int(hyp_idx is not None),
+            ang_diff.data_ptr(), rejected.data_ptr(), ptr(best), ptr(inl), ptr(h),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check_launch(err, "get_rt")
+    return GetRTOutputs(ok, rot, tran, n_inl, ang_diff, rejected, best, inl, h)
+
+
+get_rt.LAUNCHES = 0

@@ -84,6 +84,13 @@ from mrs_optic_flow_tpu_torch.utils.quat_np import (
     np_rpy_from_quat,
 )
 
+#: the ``torch.profiler`` ranges around the stages of a frame's chain
+#: (``scripts/profile_torch_node.py --split``); a range shows only in a
+#: trace of the eager chain, not inside a graph replay
+STAGES = ("node.gray", "node.engine", "node.get_rt", "node.get_2dt", "node.consensus",
+          "node.body_frame", "node.scale_rotation")
+stage = torch.profiler.record_function
+
 # The per-frame parameter vector: :func:`pack_params` packs it on the host,
 # the device chains read each field through its index or slice here.
 P_HEIGHT, P_DT = 0, 1
@@ -421,12 +428,13 @@ class OpticFlowNode:
         the frame as it is when it already is the cropped gray window."""
         c = self.config
         h, w = img.shape[0], img.shape[1]
-        if channels == 1 and (h, w) == (c.frame_size, c.frame_size):
-            return img.to(torch.float32)
-        g = to_grayscale(img) if channels == 3 else img.to(torch.float32)
-        if abs(c.scale_factor - 1.0) > 0.01:
-            g = resize_by(g, c.scale_factor)
-        return center_crop(g, c.frame_size, cx_eff)
+        with stage("node.gray"):
+            if channels == 1 and (h, w) == (c.frame_size, c.frame_size):
+                return img.to(torch.float32)
+            g = to_grayscale(img) if channels == 3 else img.to(torch.float32)
+            if abs(c.scale_factor - 1.0) > 0.01:
+                g = resize_by(g, c.scale_factor)
+            return center_crop(g, c.frame_size, cx_eff)
 
     def _maybe_host_preprocess(self, img: np.ndarray, channels: int, cx_eff: int):
         """``tpu.host_preprocess``: the native fused uint8 grayscale and crop
@@ -536,8 +544,9 @@ class OpticFlowNode:
         sr = self.scale_rotation_estimator
         if sr is None:
             return None, []
-        state, res = sr.step(self.scale_rot_state, gray)
-        return state, [res.scale.reshape(1), res.rotation.reshape(1)]
+        with stage("node.scale_rotation"):
+            state, res = sr.step(self.scale_rot_state, gray)
+            return state, [res.scale.reshape(1), res.rotation.reshape(1)]
 
     def _frame_step(self, gray: torch.Tensor, params: torch.Tensor, cx_eff: int):
         """The method-4 device chain on the gray window: engine step ->
@@ -553,18 +562,21 @@ class OpticFlowNode:
         dist, c2b = params[P_DIST], params[P_C2B]
         rate_quat, detilt = params[P_RATE_QUAT], params[P_DETILT]
 
-        flow_state, flow = self.engine.step(self.flow_state, gray)
-        res = get_rt(
-            flow.shifts, height, dt, float(cx_eff - c.frame_size // 2), cam, dist, c2b,
-            rate_quat, frame_size=c.frame_size, patch=c.sample_point_size, generator=self._gen,
-            shifted_pts_thr=c.shifted_pts_thr,
-        )
-        # detilt * (C2B * tran) (src/optic_flow.cpp:1694); the rotation axis
-        # into the body frame, rotation only (:1747)
-        tran_b = quat_rotate(detilt, quat_rotate(c2b, res.tran))
-        axis, angle = quat_axis_angle(res.rot)
-        rot_b = quat_from_axis_angle(quat_rotate(c2b, axis), angle)
-        ang = torch.stack(rpy_from_matrix(matrix_from_quat(rot_b)))
+        with stage("node.engine"):
+            flow_state, flow = self.engine.step(self.flow_state, gray)
+        with stage("node.get_rt"):
+            res = get_rt(
+                flow.shifts, height, dt, float(cx_eff - c.frame_size // 2), cam, dist, c2b,
+                rate_quat, frame_size=c.frame_size, patch=c.sample_point_size, generator=self._gen,
+                shifted_pts_thr=c.shifted_pts_thr,
+            )
+        with stage("node.body_frame"):
+            # detilt * (C2B * tran) (src/optic_flow.cpp:1694); the rotation
+            # axis into the body frame, rotation only (:1747)
+            tran_b = quat_rotate(detilt, quat_rotate(c2b, res.tran))
+            axis, angle = quat_axis_angle(res.rot)
+            rot_b = quat_from_axis_angle(quat_rotate(c2b, axis), angle)
+            ang = torch.stack(rpy_from_matrix(matrix_from_quat(rot_b)))
         sr_state, sr_parts = self._sr_step(gray)
         parts = [
             res.ok.to(torch.float32)[None],
@@ -593,16 +605,15 @@ class OpticFlowNode:
         dt, cam, c2b = params[P_DT], params[P_CAM].reshape(3, 3), params[P_C2B]
         height_lr, roll_rate = params[P_HEIGHT_LR], params[P_ROLL_RATE]
         pitch_rate, cam_yaw = params[P_PITCH_RATE], params[P_CAM_YAW]
-        flow_state, flow = self.engine.step_long_range(self.flow_state, gray)
-        res = get_2dt(flow.shifts, height_lr, dt, cam, roll_rate, pitch_rate, cam_yaw,
-                      long_range_ratio=self.engine.config.long_range_ratio)
+        with stage("node.engine"):
+            flow_state, flow = self.engine.step_long_range(self.flow_state, gray)
+        with stage("node.get_2dt"):
+            res = get_2dt(flow.shifts, height_lr, dt, cam, roll_rate, pitch_rate, cam_yaw,
+                          long_range_ratio=self.engine.config.long_range_ratio)
+        with stage("node.body_frame"):
+            body = [quat_rotate(c2b, res.tran), quat_rotate(c2b, res.tran_diff)]
         sr_state, sr_parts = self._sr_step(gray)
-        parts = [
-            res.ok.to(torch.float32)[None],
-            quat_rotate(c2b, res.tran),
-            quat_rotate(c2b, res.tran_diff),
-            *sr_parts,
-        ]
+        parts = [res.ok.to(torch.float32)[None], *body, *sr_parts]
         if c.raw_output:
             parts.append(flow.shifts_raw.reshape(-1))
         return flow_state, sr_state, torch.cat(parts), flow
@@ -621,23 +632,26 @@ class OpticFlowNode:
         cam = params[P_CAM].reshape(3, 3)
         c2b = params[P_C2B]
 
-        flow_state, flow = self.engine.step(self.flow_state, gray)
-        cells = flow.shifts_raw.reshape(-1, 2)
-        vels = -cells * torch.stack([height / cam[0, 0], height / cam[1, 1]]) / dt
-        valid = torch.isfinite(vels).all(dim=-1)
-        vels = torch.where(valid[:, None], vels, torch.zeros((), device=vels.device))
-        thr_sq = c.ransac_threshold_rad ** 2
-        if c.filter_method == "allsac":
-            vec, _ = allsac_mean(vels, valid, thr_sq)
-        elif c.filter_method == "ransac":
-            vec = ransac_mean(
-                vels, valid, thr_sq, num_of_chosen=c.ransac_num_of_chosen,
-                num_of_iterations=c.ransac_num_of_iter, generator=self._gen,
-            )
-        else:  # "average"
-            vec = point_mean(vels, valid)
-        ok = valid.any() & torch.isfinite(vec).all()
-        tran_b = quat_rotate(c2b, torch.cat([vec, torch.zeros(1, dtype=vec.dtype, device=vec.device)]))
+        with stage("node.engine"):
+            flow_state, flow = self.engine.step(self.flow_state, gray)
+        with stage("node.consensus"):
+            cells = flow.shifts_raw.reshape(-1, 2)
+            vels = -cells * torch.stack([height / cam[0, 0], height / cam[1, 1]]) / dt
+            valid = torch.isfinite(vels).all(dim=-1)
+            vels = torch.where(valid[:, None], vels, torch.zeros((), device=vels.device))
+            thr_sq = c.ransac_threshold_rad ** 2
+            if c.filter_method == "allsac":
+                vec, _ = allsac_mean(vels, valid, thr_sq)
+            elif c.filter_method == "ransac":
+                vec = ransac_mean(
+                    vels, valid, thr_sq, num_of_chosen=c.ransac_num_of_chosen,
+                    num_of_iterations=c.ransac_num_of_iter, generator=self._gen,
+                )
+            else:  # "average"
+                vec = point_mean(vels, valid)
+            ok = valid.any() & torch.isfinite(vec).all()
+        with stage("node.body_frame"):
+            tran_b = quat_rotate(c2b, torch.cat([vec, torch.zeros(1, dtype=vec.dtype, device=vec.device)]))
         sr_state, sr_parts = self._sr_step(gray)
         parts = [ok.to(torch.float32)[None], tran_b, *sr_parts]
         if c.raw_output:

@@ -13,7 +13,8 @@ What the card-side scripts share lives here too: the bound of a kernel's
 work (:func:`bound`), CUDA-event timing (:func:`time_cuda`,
 :func:`timed_calls`), own device time by kernel name (:func:`own_by_kernel`,
 :func:`own_ms`), a profiled call's device time, launches and idle share
-(:func:`profile_calls`, :func:`device_split`), percentiles, the
+(:func:`profile_calls`, :func:`device_split`), the device time of profiler
+ranges (:func:`range_split`), percentiles, the
 synchronisation guard :func:`no_host_sync`, and a raising time budget
 (:func:`time_budget`).
 """
@@ -276,6 +277,43 @@ def device_split(fn, wall_ms: float, reps: int = 2) -> dict:
     return {"device_ms": total, "kernel_a_ms": a_ms, "geometry_ms": geo, "rest_ms": total - a_ms - geo,
             "launches": round(len(others) / reps) + 1, "kernel_a_in_trace": len(a_traced),
             "kernel_a_share": a_ms / total, "idle_share": idle_share(total, wall_ms)}
+
+
+def _launched(e) -> int:
+    """Kernels (not copies or fills) launched under a CPU event of a
+    ``torch.profiler`` trace, its children's included."""
+    own = sum(not k.name.startswith(("Memcpy", "Memset")) for k in e.kernels)
+    return own + sum(_launched(c) for c in e.cpu_children)
+
+
+def range_split(fn, n: int, names) -> dict:
+    """``fn()`` ``n`` times under ``torch.profiler``, after the caller's
+    warm-up: for each profiler range of ``names`` (``record_function``),
+    the device ms, kernels and entries a call of the work launched inside
+    it; the whole call's device ms and kernels; and ``rest``, what lies
+    outside every named range (uploads, the readback, glue).  The ranges
+    must not nest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu = torch.autograd.DeviceType.CPU
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_card = _kernel_events(prof)
+    total = {"device_ms": sum(e.self_device_time_total for e in on_card) / 1e3 / n,
+             "kernels": sum(not e.name.startswith(("Memcpy", "Memset")) for e in on_card) / n}
+    out = {}
+    for name in names:
+        ranges = [e for e in events if e.device_type == cpu and e.name == name]
+        if ranges:
+            out[name] = {"device_ms": sum(e.device_time_total for e in ranges) / 1e3 / n,
+                         "kernels": sum(_launched(e) for e in ranges) / n, "entries": len(ranges) / n}
+    out["rest"] = {k: total[k] - sum(v[k] for v in out.values()) for k in total}
+    out["total"] = total
+    return out
 
 
 def no_host_sync(dev):

@@ -6,9 +6,10 @@
 
 Runs ``geometry/batched.py::get_rt_batch`` (the serving pipeline's getRT:
 undistort -> RANSAC homography -> Malis-Vargas decomposition -> the
-IMU-nearest solution) on ``BATCH`` pairs of 16 window shifts each (uniform
-in +-3 px, made on the card) at each RANSAC iteration count of ``SWEEP``,
-and prints one JSON line a count:
+IMU-nearest solution; on the card the Gumbel draw and kernel G) on
+``BATCH`` pairs of 16 window shifts each (uniform in +-3 px, made on the
+card) at each RANSAC iteration count of ``SWEEP``, and prints one JSON line
+a count:
 
 - ``wall_ms``: a call's time by CUDA events, one call in flight, each read
   back (``benchlib.timed_calls``);
@@ -18,7 +19,7 @@ and prints one JSON line a count:
   the code (:func:`geometry_work`) over 67 TFLOP/s and 3.35 TB/s, and
   ``bound_materialized_ms``, the same with the ``[iterations, P, B]``
   residuals and ``[iterations, 9, B]`` hypotheses written and read once, as
-  the eager code materialises them.
+  the plain version materialises them (kernel G keeps them on chip).
 
 Each line carries the card's ``nvidia-smi`` name and power limit.  With
 ``--device cpu`` it times the calls by the host clock; device numbers null.

@@ -2,6 +2,7 @@
 """Per-frame profile of the PyTorch port's node on one CUDA card, mode by mode.
 
     python3 scripts/profile_torch_node.py [--modes method4,lr_only_120,...] [--frames 20]
+    python3 scripts/profile_torch_node.py --split [--modes method4,method4_sr,lr_only_120]
 
 For each mode it builds an ``OpticFlowNode`` on the card, warms it up, feeds
 10 frames, then times ``--frames`` more (host wall time of each
@@ -15,6 +16,13 @@ profiled wall time; the profiler slows the host, so this is an upper bound)
 and the kernels with the most device time; the hand kernels' launches a
 frame (their wrappers' counts over the unprofiled frames); and a JSON line
 of these.
+``--split`` traces each mode's eager chain instead (the node's graphs
+replaced by the chain they capture, ``chip_smoke.eager_chain``: a profiler
+range shows only outside a replay) and prints, per stage of
+``runtime/node.py::STAGES`` (grey, engine, getRT or get2DT or consensus,
+body frame, scale/rotation) and for the rest (uploads, readback, glue),
+the device ms and kernels a frame (``benchlib.range_split``), one JSON line
+a mode.
 The frames are ``chip_smoke.py``'s renders (a texture moving at 0.8, -0.5
 m/s; rotating and zooming for the scale/rotation modes).  Needs the CUDA
 toolkit to build the kernels; imports no JAX.
@@ -81,7 +89,7 @@ def frames_for(scene: str, n: int, height):
     return cs.render_frames(n, heights=heights), heights
 
 
-def profile_mode(name: str, n_frames: int, dev) -> None:
+def profile_mode(name: str, n_frames: int, dev, split: bool = False) -> None:
     import torch
 
     import chip_smoke as cs
@@ -90,8 +98,8 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
     from mrs_optic_flow_tpu_torch.runtime.msgs import (
         CameraInfo, Float64Stamped, ImageMsg, Imu, Odometry,
     )
-    from mrs_optic_flow_tpu_torch.runtime.node import OpticFlowNode
-    from mrs_optic_flow_tpu_torch.utils.benchlib import percentiles, profile_calls
+    from mrs_optic_flow_tpu_torch.runtime.node import STAGES, OpticFlowNode
+    from mrs_optic_flow_tpu_torch.utils.benchlib import percentiles, profile_calls, range_split
 
     fields, scene, height = MODES[name]
     frames, heights = frames_for(scene, WARM + n_frames, height)
@@ -100,6 +108,8 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
     node.on_camera_info(CameraInfo(k=[cs.FX, 0, 376.0, 0, cs.FY, 240.0, 0, 0, 1], d=[0.0] * 5))
     node.set_transforms((0.0, 0.0, 0.0, 1.0))
     node.warmup()
+    if split:
+        cs.eager_chain(node)
 
     def feed(i):
         t = 100.0 + i * cs.DT
@@ -113,6 +123,14 @@ def profile_mode(name: str, n_frames: int, dev) -> None:
     for i in range(WARM):
         feed(i)
     torch.cuda.synchronize()
+    if split:
+        frames_left = iter(measured)
+        out = range_split(lambda: feed(next(frames_left)), n_frames, STAGES)
+        print(f"== {name} {fields}: the eager chain's device time a frame by stage", flush=True)
+        for stage, v in out.items():
+            print(f"   {stage:22s} {v['device_ms']:8.4f} ms  {v['kernels']:7.1f} kernels", flush=True)
+        print("   " + json.dumps({"mode": name, "split": out}), flush=True)
+        return
     wrappers = [getattr(cuda_kernels, k) for k in cuda_kernels.SOURCES]
     for fn in wrappers:
         fn.LAUNCHES = 0
@@ -147,6 +165,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--modes", default=",".join(MODES), help=f"comma-separated, of {list(MODES)}")
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--split", action="store_true",
+                    help="the eager chain's device time and kernels a frame by stage")
     args = ap.parse_args()
     modes = args.modes.split(",")
     unknown = [m for m in modes if m not in MODES]
@@ -165,7 +185,7 @@ def main() -> int:
     cuda_kernels.build()
     dev = torch.device("cuda")
     for name in modes:
-        profile_mode(name, args.frames, dev)
+        profile_mode(name, args.frames, dev, split=args.split)
     return 0
 
 

@@ -517,5 +517,7 @@ def test_phase_20_names_the_kernels_of_every_mode():
 
     assert set(chip_smoke.GRAPH_KERNELS) == set(CARD_MODES)
     assert all(k <= set(chip_smoke.KERNELS) for k in chip_smoke.GRAPH_KERNELS.values())
-    assert chip_smoke.GRAPH_KERNELS["plain"] == set()
+    # use_pallas: false takes none of the engines' hand kernels; its getRT,
+    # like every method-4 chain's on the card, is kernel G
+    assert chip_smoke.GRAPH_KERNELS["plain"] == {"get_rt"}
     assert all(chip_smoke.GRAPH_KERNELS[m] for m in CARD_MODES if m != "plain")

@@ -199,7 +199,7 @@ def test_sad_tiling_rule(s, r, parts):
 
 #: every C function the wrappers bind: (kernel, function)
 BINDINGS = [(name, fn) for name, fns in cuda_kernels._SIGNATURES.items() for fn in fns]
-_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 
 def _c_type(decl: str):

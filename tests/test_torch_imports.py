@@ -52,9 +52,11 @@ PORT_MODULES = [
 #: the port's measurement and tuning scripts, which run on the card
 PORT_SCRIPTS = [
     "accuracy_report_torch",
+    "probe_torch_orders_torch",
     "profile_geometry_torch",
     "profile_torch_node",
     "tune_frames_kernel_torch",
+    "tune_get_rt_kernel_torch",
     "tune_sad_kernel_torch",
     "tune_scale_rotation_torch",
     "verify_sr_fused_torch",
