@@ -2339,6 +2339,14 @@ def measure_serving_loop(dev, pipe, prev_np, curr_np, truth) -> dict:
     for depth in (1, 8):
         loop = ServingLoop(pipe, batch_size=SERVING_BATCH, depth=depth, seed=depth)
         list(loop.run(reqs[:SERVING_BATCH * depth]))  # warm-up: every staging slot allocated
+        if depth == 1:
+            # a short batch, stacked range by range from the staging's threads
+            part = [r.curr for r in reqs[:SERVING_BATCH - 3]]
+            staged = loop._stack("curr", part).cpu().numpy()
+            check(np.array_equal(staged, np.stack(part + [part[-1]] * 3)),
+                  "ServingLoop's staged batch differs from np.stack of its requests")
+            say(f"  ServingLoop._stack of {len(part)} requests padded to {SERVING_BATCH}: bit for bit "
+                f"np.stack's")
         wrappers = reset_launches()
         t0 = time.perf_counter()
         with no_host_sync(dev):
@@ -2406,6 +2414,13 @@ def fleet_truth(n: int, heights: np.ndarray) -> np.ndarray:
     return -d * heights[:, None] / FX / DT
 
 
+def same_tick(a, b) -> bool:
+    """Two materialized ``FleetTick``s equal bit for bit (NaN where NaN)."""
+    return all((x is None and y is None) or np.array_equal(x, y, equal_nan=x.dtype != bool)
+               for x, y in ((getattr(a, k), getattr(b, k))
+                            for k in ("ok", "tran", "rot", "shifts", "dts", "scale", "rotation")))
+
+
 def run_fleets(dev) -> dict:
     """Phase 15(c) and (d): the fleet of ``FLEET_STREAMS`` streams with a
     masked stream, a reset and a checkpoint round trip, the long-range
@@ -2413,11 +2428,13 @@ def run_fleets(dev) -> dict:
     import tempfile
     import threading
 
+    import torch
     from oracle import smooth_random_image
 
     from mrs_optic_flow_tpu_torch.models import ScaleRotationEstimator
+    from mrs_optic_flow_tpu_torch.ops.preprocess import checked_crop_origin
     from mrs_optic_flow_tpu_torch.parallel import BatchPipeline
-    from mrs_optic_flow_tpu_torch.runtime import FleetFeeder, FleetServer
+    from mrs_optic_flow_tpu_torch.runtime import FleetFeeder, FleetServer, staging
 
     n = FLEET_STREAMS
     tex = np.clip(np.rint(smooth_random_image(np.random.default_rng(0), 1024, cutoff=0.25)), 0,
@@ -2427,8 +2444,33 @@ def run_fleets(dev) -> dict:
     heights = np.array([FLEET_H[i % len(FLEET_H)] for i in range(n)])
     out = {}
 
-    # (c) the short-range fleet
+    # (c) one tick's crops into a pinned slot, from one thread and from the pool
+    f = pipe.frame_size
+    xi, yi = checked_crop_origin(752, 480, f, int(pipe.crop_cx))
+    crops = fleet_frames(tex, 0, n)[:, yi:yi + f, xi:xi + f]
+    slot = torch.empty(crops.shape, dtype=torch.uint8, pin_memory=dev.type == "cuda").numpy()
+
+    def copy(out, i, j):
+        np.copyto(out[i:j], crops[i:j])
+
+    stage_ms = {}
+    for name, fill in (("one_worker", lambda: staging.fill_rows(slot, copy, 1)),
+                       ("pool", lambda: staging.fill_array(slot, copy))):
+        runs = []
+        for _ in range(6):
+            slot[:] = 0
+            t0 = time.perf_counter()
+            fill()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(slot, crops), f"the {name} fill differs from the crops")
+        stage_ms[name] = float(np.median(runs[1:]))
+    say(f"  staging one tick's crops ({crops.nbytes / 1e6:.1f} MB of {n} BGR frames) into pinned memory: "
+        f"{stage_ms['one_worker']:.3f} ms from one thread, {stage_ms['pool']:.3f} ms from the pool of "
+        f"{staging.POOL_WORKERS} (median of 5 after one)")
+
+    # (c) the short-range fleet, and its twin fed tensors: the full-frame route
     fleet = FleetServer(pipe, n, seed=1)
+    twin = FleetServer(pipe, n, seed=1)
     a = kernel_wrappers()["phase_correlate_frames"]
     tick_ms, n_ok, n_valid, worst = [], 0, 0, 0.0
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
@@ -2448,6 +2490,11 @@ def run_fleets(dev) -> dict:
             if t:
                 tick_ms.append((time.perf_counter() - t0) * 1e3)
                 check(a.LAUNCHES == 1, f"tick {t}: {a.LAUNCHES} kernel A launches")
+            if t == FLEET_RESET[0]:
+                twin.reset(FLEET_RESET[1])
+            full = twin.tick(torch.from_numpy(frames), np.full(n, t * DT), heights, mask=mask).materialize()
+            check(same_tick(tick, full) and torch.equal(fleet._prev, twin._prev),
+                  f"tick {t}: the crop-staged fleet differs from the full-frame route")
             expect = mask & (t > 0)
             if t == FLEET_RESET[0]:
                 expect[FLEET_RESET[1]] = False
@@ -2471,9 +2518,11 @@ def run_fleets(dev) -> dict:
     p50, p90 = np.percentile(tick_ms, 50), np.percentile(tick_ms, 90)
     say(f"  fleet {n} streams x {FLEET_TICKS} ticks: {n_ok} of {n_valid} valid stream ticks ok, max "
         f"|v - truth| {worst:.4f} m/s; masked stream's dt spans two ticks; reset regated; checkpoint "
-        f"resumed to the same tick; tick p50 {p50:.3f} ms, p90 {p90:.3f} ms (upload of {n} BGR "
-        f"frames to readback)")
-    out["fleet"] = {"streams": n, "tick_p50_ms": p50, "tick_p90_ms": p90, "max_twist_err": worst}
+        f"resumed to the same tick; carried crops and every tick's outputs bit for bit those of the "
+        f"full-frame route; tick p50 {p50:.3f} ms, p90 {p90:.3f} ms (staging of {n} BGR frames' "
+        f"crops to readback)")
+    out["fleet"] = {"streams": n, "tick_p50_ms": p50, "tick_p90_ms": p90, "max_twist_err": worst,
+                    "staging_ms": stage_ms, "pool_workers": staging.POOL_WORKERS}
 
     # (c) the long-range fleet: tilt-corrected heights
     lr = FleetServer(pipe, n, long_range=True)
@@ -2505,6 +2554,7 @@ def run_fleets(dev) -> dict:
     sr = ScaleRotationEstimator(device=dev)
     kw = dict(camera_matrix=cam_sq, dist_coeffs=np.zeros(5, np.float32), device=dev)
     fused = FleetServer(BatchPipeline(**kw, scale_rotation=sr), m, seed=2)
+    fused_twin = FleetServer(fused.pipeline, m, seed=2)
     plain = FleetServer(BatchPipeline(**kw), m, scale_rotation=sr, seed=2)
     check(fused._sr_fused and not plain._sr_fused, "fused / unfused")
     steps = [SR_FLEET_STEPS[i % len(SR_FLEET_STEPS)] for i in range(m)]
@@ -2520,6 +2570,10 @@ def run_fleets(dev) -> dict:
             if t:
                 check(a.LAUNCHES == 1 and b.LAUNCHES == 1, f"scale/rotation fleet tick {t}: A "
                       f"{a.LAUNCHES}, B {b.LAUNCHES} launches")
+        full = fused_twin.tick(torch.from_numpy(frames), np.full(m, t * DT), np.full(m, HEIGHT)).materialize()
+        check(same_tick(ticks[0], full) and torch.equal(fused._prev, fused_twin._prev)
+              and torch.equal(fused._prev_lp, fused_twin._prev_lp),
+              f"scale/rotation tick {t}: the crop-staged fleet differs from the full-frame route")
         if t:
             tf, tp = ticks
             rot_deg = np.rad2deg(tf.rotation)
@@ -2530,7 +2584,8 @@ def run_fleets(dev) -> dict:
             fused_diff = max(fused_diff, float(np.abs(tf.rotation - tp.rotation).max()),
                              float(np.abs(tf.scale - tp.scale).max()))
     say(f"  scale/rotation fleet {m} streams: decodes within {sr_rot_err:.4f} deg and {sr_scale_err:.5f}; "
-        f"fused against unfused {fused_diff:.3g}")
+        f"fused against unfused {fused_diff:.3g}; the fused fleet's outputs and carries bit for bit those "
+        f"of the full-frame route")
     check(sr_rot_err <= SR_ROT_TOL and sr_scale_err <= SR_SCALE_TOL, "scale/rotation decodes")
     check(fused_diff <= SR_FUSED_TOL, f"fused and unfused decodes differ by {fused_diff}")
     out["scale_rotation_fleet"] = {"streams": m, "rot_err_deg": sr_rot_err, "scale_err": sr_scale_err,

@@ -47,15 +47,21 @@ def center_crop(img: torch.Tensor, frame_size: int, cx: float) -> torch.Tensor:
     """``frame_size``-square crop centred on ``(cx, H/2)``
     (``src/optic_flow.cpp:1610-1618``); a view of ``img``."""
     h, w = img.shape[-2:]
-    xi, yi = crop_origin(w, h, frame_size, cx)
-    if xi < 0 or yi < 0 or xi + frame_size > w or yi + frame_size > h:
-        raise ValueError(f"crop {frame_size}px at ({xi}, {yi}) leaves the {w}x{h} image")
+    xi, yi = checked_crop_origin(w, h, frame_size, cx)
     return img[..., yi : yi + frame_size, xi : xi + frame_size]
 
 
 def crop_origin(img_width: int, img_height: int, frame_size: int, cx: float) -> tuple:
     """Upper-left corner ``(xi, yi)`` of the crop (``src/optic_flow.cpp:1719``)."""
     return int(cx) - frame_size // 2, img_height // 2 - frame_size // 2
+
+
+def checked_crop_origin(img_width: int, img_height: int, frame_size: int, cx: float) -> tuple:
+    """:func:`crop_origin`, or ``ValueError`` where the crop leaves the image."""
+    xi, yi = crop_origin(img_width, img_height, frame_size, cx)
+    if xi < 0 or yi < 0 or xi + frame_size > img_width or yi + frame_size > img_height:
+        raise ValueError(f"crop {frame_size}px at ({xi}, {yi}) leaves the {img_width}x{img_height} image")
+    return xi, yi
 
 
 def resize_by(img: torch.Tensor, inv_scale: float) -> torch.Tensor:

@@ -168,6 +168,14 @@ class BatchPipeline:
             return Sharded([self._preprocess_on(r, r.device) for r in raw.shards], raw.mesh)
         return self._preprocess_on(raw, self.device)
 
+    def preprocess_crops(self, crops: torch.Tensor) -> torch.Tensor:
+        """:meth:`preprocess` of frames already cut to the crop, ``[B, F, F]``
+        gray or ``[B, F, F, 3]`` BGR on the pipeline's device: the same grey
+        of the same pixels, converted on the crop alone."""
+        if tuple(crops.shape[1:3]) != (self.frame_size, self.frame_size):
+            raise ValueError(f"crops of {tuple(crops.shape[1:3])} px, the pipeline crops {self.frame_size}")
+        return (to_grayscale(crops) if crops.ndim == 4 else crops).contiguous()
+
     def logpolar_carry(self, frames: torch.Tensor) -> torch.Tensor:
         """The log-polar images of preprocessed frames: the initial (or
         rebuilt) carry of :meth:`step_pre_carried`."""

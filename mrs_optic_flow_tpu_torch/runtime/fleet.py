@@ -5,9 +5,10 @@
 reference's ``imPrev`` swap, ``src/FftMethod.cpp:1872``, per stream), and
 every tick runs the whole fleet's flow + geometry as one
 :class:`~..parallel.pipeline.BatchPipeline` call.  The previous frames stay
-on the card, preprocessed, so a tick uploads only the new frames (through
-pinned memory, :class:`~.staging.HostStaging`) and reads nothing back until
-the caller materializes it.
+on the card, preprocessed, so a tick uploads only the new frames' crops
+(through pinned memory, filled from several threads,
+:class:`~.staging.HostStaging`) and reads nothing back until the caller
+materializes it.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from mrs_optic_flow_tpu_torch.convert import fleet_state_from_numpy
+from mrs_optic_flow_tpu_torch.ops.preprocess import checked_crop_origin
 from mrs_optic_flow_tpu_torch.parallel.pipeline import BatchPipeline
 from mrs_optic_flow_tpu_torch.runtime.serving import Draws
 from mrs_optic_flow_tpu_torch.runtime.staging import HostStaging
@@ -166,16 +168,23 @@ class FleetServer:
 
     def _frames(self, frames) -> torch.Tensor:
         """Raw frames ``[N, ...]`` -> preprocessed ``[N, F, F]`` on the
-        device, uploaded through pinned memory."""
-        if isinstance(frames, torch.Tensor):
-            frames = frames.to(self.device)
-        else:
-            frames = self._staging.array("frames", np.asarray(frames))
+        device, once a frame: this tick's curr and, where masked in, the
+        next tick's prev.  A host array is staged through pinned memory crop
+        only (the pipeline's ``F``-square crop of each frame, the columns
+        outside it neither copied nor uploaded) and turned grey on the card
+        (:meth:`BatchPipeline.preprocess_crops`); a tensor goes to the
+        device whole and is cropped there (:meth:`BatchPipeline.preprocess`).
+        Both give the same crops."""
+        if not isinstance(frames, torch.Tensor):
+            frames = np.asarray(frames)
         if frames.shape[0] != self.n:
             raise ValueError(f"expected {self.n} streams, got {frames.shape[0]}")
-        # preprocess ONCE per frame: this tick's curr and, where masked in,
-        # the next tick's prev
-        return self.pipeline.preprocess(frames)
+        if isinstance(frames, torch.Tensor):
+            return self.pipeline.preprocess(frames.to(self.device))
+        f = self.pipeline.frame_size
+        xi, yi = checked_crop_origin(frames.shape[2], frames.shape[1], f, int(self.pipeline.crop_cx))
+        crops = frames[:, yi:yi + f, xi:xi + f]  # a view: the staging copies only these pixels
+        return self.pipeline.preprocess_crops(self._staging.array("frames", crops))
 
     def tick(
         self,

@@ -6,9 +6,10 @@ fixed-size batches, and batch k+1 is dispatched before batch k's results are
 read back, so host I/O and device work overlap (the reference's single
 blocking queue cannot, ``src/FftMethod.cpp:398``).  On the card a dispatch
 never blocks the host: each batch is staged in pinned host memory (a buffer
-per in-flight slot, :class:`~.staging.HostStaging`) and copied with
-``non_blocking=True``, the pipeline reads nothing back, and the one host
-readback of a batch is in :meth:`ServingLoop._collect`.
+per in-flight slot, :class:`~.staging.HostStaging`, its rows stacked from
+several threads at once) and copied with ``non_blocking=True``, the
+pipeline reads nothing back, and the one host readback of a batch is in
+:meth:`ServingLoop._collect`.
 """
 
 from __future__ import annotations
@@ -82,12 +83,15 @@ class ServingLoop:
 
     def _stack(self, name: str, arrays: List[np.ndarray]) -> torch.Tensor:
         """The batch ``[batch_size, ...]`` of ``arrays`` on the device,
-        padded by repeating the last one."""
+        padded by repeating the last one, each range of rows stacked by a
+        thread of its own (:meth:`HostStaging.put`)."""
         n = len(arrays)
 
-        def fill(out):
-            np.stack(arrays, out=out[:n])
-            out[n:] = out[n - 1]
+        def fill(out, i, j):
+            if i < min(j, n):
+                np.stack(arrays[i:j], out=out[i:min(j, n)])
+            if j > max(i, n):
+                out[max(i, n):j] = arrays[n - 1]
 
         return self._staging.put(name, (self.batch_size,) + arrays[0].shape, arrays[0].dtype, fill)
 

@@ -54,6 +54,7 @@ PORT_SCRIPTS = [
     "accuracy_report_torch",
     "probe_torch_orders_torch",
     "profile_geometry_torch",
+    "profile_staging_torch",
     "profile_torch_node",
     "tune_frames_kernel_torch",
     "tune_get_rt_kernel_torch",

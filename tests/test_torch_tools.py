@@ -31,6 +31,7 @@ from mrs_optic_flow_tpu_torch.ops import preprocess
 from mrs_optic_flow_tpu_torch.utils import benchlib
 from scripts import accuracy_report_torch as acc
 from scripts import profile_geometry_torch as pg
+from scripts import profile_staging_torch as pst
 from scripts import tune_frames_kernel_torch as tf
 from scripts import tune_sad_kernel_torch as ts
 from scripts import tune_scale_rotation_torch as tsr
@@ -103,6 +104,8 @@ MAINS = {
                          ("metric", "ransac_iterations", "batch", "ops", "bytes", "bytes_materialized",
                           "bound_ms", "bound_by", "bound_materialized_ms", "wall_ms", "device_ms",
                           "kernels", "idle_share", "ok_share", "card")),
+    "profile_staging": (pst, ["--streams", "4", "--batch", "6", "--reps", "2", "--workers", "1,3"],
+                        ("metric", "workers", "bytes", "ms", "runs_ms", "gbps", "cpus", "pool_workers", "card")),
     "accuracy_report": (acc, ["--pairs", "2", "--size", "120"],
                         ("metric", "route", "card")),
     "verify_sr_fused": (vsr, ["--frames", "3", "--k", "2", "--reps", "1"],
