@@ -46,6 +46,10 @@ Phases, each printing a line when it finishes:
    752x480 frames of a texture moving at a known velocity; every published
    twist after the first is held to 0.15 m/s of the truth, and every frame
    is shown to have gone through kernel A and its getRT through kernel G;
+   then a method-4 frame's kernels and device time, 10 graph replays
+   profiled and 10 frames of the eager chain split by stage (the body frame
+   inside ``node.get_rt+body_frame``, G's epilogue, and no
+   ``node.body_frame`` range), printed on the phase's line;
 6. kernel B against its twin: log-polar surfaces at N = 480 (P = 1 and 4),
    FftMethod ``backend="fft"`` surfaces ``[64, 120, 120]``, and ties, NaN
    inside and outside the search window, an edge peak, an all-negative and
@@ -267,10 +271,19 @@ Phases, each printing a line when it finishes:
     ``G_H_RTOL`` of the plain one, ``tran`` and ``rot`` within
     ``G_TWIST_P99`` (99th percentile) and ``G_TWIST_TOL`` of the plain
     version's, and at ``G_EXACT_BATCHES`` the refit and the twists bit for
-    bit; then timed at ``G_TIMED``
-    (one pair, 512 hypotheses, and the bench's 4,096 pairs, 256): its own
-    device time, the wrapper, the entry point with its draws, the plain
-    version and the bound.
+    bit (B = 128 takes the block layout, 512 a block of 4 warps a pair,
+    4,096 the warp layout); then G's epilogue at B = 1, the node's body
+    frame, on the flight's windows, on level pairs whose rate is below
+    ``quat_axis_angle``'s ``safe`` threshold, on yawing pairs through a
+    mount and a tilt, and on a scan of pitch rates at +-pi/2 that reaches
+    ``rpy_from_matrix``'s gimbal branch: the summary head bit for bit
+    ``rt_body_frame`` of G's own outputs on the card (each field's largest
+    difference in ulps printed), and within ``G_TWIST_TOL`` of
+    ``get_rt_ref`` then ``rt_body_frame``; then timed at ``G_TIMED`` (one
+    pair, 512 hypotheses, with and without the epilogue; the fleet's 128
+    pairs, the ServingLoop's 512 and the bench's 4,096, 256 hypotheses):
+    its own device time, the wrapper, the entry point with its draws, the
+    plain version and the bound.
 
 Each node phase sets every kernel's launch count to 0 just before it drives
 the node and reads the counts just after.  Before the last line it prints
@@ -284,8 +297,9 @@ kernel: its launches in its node phase and over phase 16's flights
 for E, which lies on none of them)
 (kernel C: methods 3 and 5 together; kernel D: phase 12(b); kernel E: the
 conformance check of phase 11; kernel G: phase 5), its largest difference
-from its twin (G: also ``max_abs_err_p99``; its numbers at B = 4096 under
-``b4096``), its
+from its twin (G: also ``max_abs_err_p99``, its epilogue's own time and
+largest difference in ulps, its numbers at B = 128, 512 and 4096 under
+``b128``, ``b512`` and ``b4096``), its
 time through the wrapper (``ms``, CUDA events over back-to-back calls), its
 own device time (``own_ms``, ``torch.profiler``'s kernel durations), the
 twin's and the stock PyTorch route's (``library_ms``: the ``torch.fft``
@@ -1077,18 +1091,53 @@ def check_twists(node, published, tol: float, label: str) -> None:
     check(health["frames_processed"] == len(twists), health)
 
 
+#: phase 5's frames after the checked ones: profiled replays, then the
+#: eager chain split by stage
+NODE_PROFILED = 10
+
+
+def node_frame_kernels(node, frames) -> dict:
+    """A method-4 frame's kernels and device time: ``NODE_PROFILED`` graph
+    replays (``profile_calls``), then as many frames of the eager chain
+    split by ``runtime/node.py::STAGES`` (``range_split``); the body frame
+    is G's epilogue, inside the ``node.get_rt+body_frame`` range, and no
+    ``node.body_frame`` range runs."""
+    from mrs_optic_flow_tpu_torch.runtime.node import STAGES
+    from mrs_optic_flow_tpu_torch.utils.benchlib import profile_calls, range_split
+
+    it = iter(range(N_FRAMES, N_FRAMES + 2 * NODE_PROFILED))
+
+    def feed():
+        i = next(it)
+        feed_frame(node, i, frames[i])
+
+    replay = profile_calls(feed, NODE_PROFILED)
+    eager_chain(node)
+    split = range_split(feed, NODE_PROFILED, STAGES)
+    row = {"graph_kernels": replay["kernels"], "graph_device_ms": replay["device_ms"],
+           "graph_idle_share": replay["idle_share"],
+           "eager": {k: {"kernels": v["kernels"], "device_ms": v["device_ms"]} for k, v in split.items()}}
+    check("node.body_frame" not in split and split["node.get_rt+body_frame"]["entries"] == 1,
+          f"method-4 frame stages {split}")
+    return row
+
+
 def run_node(dev) -> dict:
     """Phase 5.  Returns the kernel launches of the node's run, by kernel."""
     from mrs_optic_flow_tpu_torch.config import NodeConfig
 
-    node, published, launches, _ = drive_node(dev, NodeConfig(), render_frames(N_FRAMES), "method 4")
+    frames = render_frames(N_FRAMES + 2 * NODE_PROFILED)
+    node, published, launches, _ = drive_node(dev, NodeConfig(), frames[:N_FRAMES], "method 4")
     host = node.profiler.stats()["frame_program"]
     say(f"  host time to issue the frame chain p50 {host['p50_s'] * 1e3:.3f} ms")
     check_twists(node, published, TWIST_TOL, "method 4")
     # every processed frame after the first-frame copy runs getRT once, in G
     check(launches["get_rt"] == N_FRAMES - 1, f"{launches['get_rt']} kernel G launches for "
           f"{N_FRAMES - 1} processed frames")
-    say("[5 node] twists within budget")
+    frame = node_frame_kernels(node, frames)
+    say(f"[5 node] twists within budget; a method-4 frame: {frame['graph_kernels']:.1f} kernels, "
+        f"{frame['graph_device_ms']:.4f} ms of device time a replay ({card_name()}); "
+        + json.dumps({"method4_frame": frame}))
     return launches
 
 
@@ -1809,19 +1858,21 @@ def check_route_constants() -> None:
         check(pcfu.pcfu_smem_bytes(n) == ck.pcfu_smem_bytes(n), f"kernel E's shared memory at n={n}")
         check(pcfu.pcfu_scratch_bytes(n) == ck.pcfu_scratch_bytes(n), f"kernel E's scratch at n={n}")
         check(ck.pcfu_smem_bytes(n) + ck.STATIC_SMEM_BYTES <= limit, f"kernel E at n={n} does not fit")
-    # kernel G: shared memory and block shapes of the library are the wrapper's
+    # kernel G: shared memory and launch shapes of the library are the wrapper's
     grt = ck.load_library("get_rt")
+    sms = props.multi_processor_count
     for p in (9, 16, 36, 64, 256):
-        for t in (32, 64, 256):
-            for batched in (0, 1):
+        check(grt.grt_pair_smem_bytes(p) == ck.grt_pair_smem_bytes(p), f"kernel G's shared memory a pair at P={p}")
+        for n in (1, 2, 8):
+            check(grt.grt_tile_bytes(p, n) == ck.grt_tile_bytes(p, n), f"kernel G's tiles at P={p}, {n} pairs")
+        for batched in (0, 1):
+            for t in (32, 64, 256):
                 check(grt.grt_smem_bytes(p, t, batched) == ck.grt_smem_bytes(p, t, bool(batched)),
                       f"kernel G's shared memory at P={p}, {t} threads, batched {batched}")
-        for b, iters in ((1, 512), (128, 256), (4096, 256), (4096, 512)):
-            wide = b > props.multi_processor_count
-            want = ck.grt_block_threads(p, iters, b > 1, limit - ck.STATIC_SMEM_BYTES,
-                                        ck.GRT_WIDE_SHAPE[0] if wide else ck.GRT_MAX_THREADS)
-            check(grt.grt_block_threads(b, p, iters, int(b > 1)) == want,
-                  f"kernel G's threads at B={b} P={p} I={iters}")
+        for b, iters in ((1, 512), (128, 256), (512, 256), (1024, 256), (4096, 256), (4096, 512)):
+            threads, smem, _ = ck.grt_launch(b, p, iters, b > 1, sms, limit - ck.STATIC_SMEM_BYTES)
+            check((grt.grt_block_threads(b, p, iters, int(b > 1)), grt.grt_block_smem(b, p, iters, int(b > 1)))
+                  == (threads, smem), f"kernel G's launch at B={b} P={p} I={iters}")
     peak_grid = {(p, n, r): ck.peak_split(p, n, r) for p, n, r in ((1, 480, 240), (4, 480, 240), (64, 120, 55))}
     occupancy = {n: pcf.pcf_blocks_per_sm(n) for n in range(8, ck.PCF_MAX_PATCH + 1, 8)}
     check(min(occupancy.values()) >= 1 and occupancy[120] >= 2,
@@ -4186,17 +4237,26 @@ G_TWIST_P99, G_TWIST_TOL = 0.0075, TWIST_TOL
 #: product is not known
 G_EXACT_BATCHES = (1, 512, 4096)
 #: phase 21's timed shapes, ``BxIxP``: the node's one pair (512 hypotheses
-#: given as rows, 16 windows) and the bench batch (4,096 pairs, 256 draws)
-G_TIMED = ("1x512x16", "4096x256x16")
+#: given as rows, 16 windows), the fleet's tick (128 pairs, 256 draws; the
+#: latency layout), the ServingLoop batch (512) and the bench batch (4,096;
+#: both the batch layout)
+G_TIMED = ("1x512x16", "128x256x16", "512x256x16", "4096x256x16")
+#: the epilogue's summary head against its plain version on the card, field
+#: by field: [ok, tran_b (3), roll, pitch, yaw, n_inliers, rejected]
+G_SUMMARY_FIELDS = ("ok", "tran_x", "tran_y", "tran_z", "roll", "pitch", "yaw", "n_inliers", "rejected")
+#: a body-frame mount (camera z to body -z, x to -y: the downward camera)
+#: and a tilt (roll 0.1, pitch -0.08 rad) for the epilogue's synthetic cases
+G_C2B = (0.70710677, -0.70710677, 0.0, 0.0)
+G_DETILT = (0.04993919, -0.03993936, 0.00199863, 0.9979514)
 
 
-def g_windows(b: int, p: int, seed: int) -> dict:
+def g_windows(b: int, p: int, seed: int, yaw_rate: float = 0.5, noise: float = 0.02) -> dict:
     """``b`` pairs of ``p`` window shifts [px] of a level camera (fx = fy =
     420 at (376, 240), the 480 crop at 136) over flat ground: each pair its
     own height (1-2.5 m), velocity (up to 1 m/s, vz up to 0.2) and yaw rate
-    (up to 0.5 rad/s) at dt 0.05 s, 0.02 px of noise, up to two outliers of
-    5-10 px and up to two NaN windows; pair 0 has no valid window, pair 1
-    dt = 0 (no finite 1/dt)."""
+    (up to ``yaw_rate`` rad/s) at dt 0.05 s, ``noise`` px of noise, up to
+    two outliers of 5-10 px and up to two NaN windows; pair 0 has no valid
+    window, pair 1 dt = 0 (no finite 1/dt)."""
     rng = np.random.default_rng(seed)
     q = int(round(math.sqrt(p)))
     patch = 480 // q
@@ -4206,7 +4266,7 @@ def g_windows(b: int, p: int, seed: int) -> dict:
     y = (gy.reshape(-1) - 240.0) / FY
     h = rng.uniform(1.0, 2.5, b)
     v = np.stack([rng.uniform(-1, 1, b), rng.uniform(-1, 1, b), rng.uniform(-0.2, 0.2, b)], -1)
-    yaw = rng.uniform(-0.5, 0.5, b) * DT
+    yaw = rng.uniform(-yaw_rate, yaw_rate, b) * DT
     dts = np.full(b, DT)
     shifts = np.empty((b, p, 2))
     for i in range(b):
@@ -4216,7 +4276,7 @@ def g_windows(b: int, p: int, seed: int) -> dict:
         w = hm @ np.stack([x, y, np.ones(p)])
         shifts[i, :, 0] = (w[0] / w[2] - x) * FX
         shifts[i, :, 1] = (w[1] / w[2] - y) * FY
-    shifts += rng.normal(0.0, 0.02, shifts.shape)
+    shifts += rng.normal(0.0, noise, shifts.shape)
     for i in range(b):
         for k in rng.choice(p, rng.integers(0, 3), replace=False):
             shifts[i, k] += rng.choice([-1, 1], 2) * rng.uniform(5, 10, 2)
@@ -4317,9 +4377,11 @@ def check_get_rt_batched(dev, b: int, p: int, iters: int, case: int) -> dict:
 
 
 def flight_windows(dev, n_frames: int = 313) -> list:
-    """The window shifts and parameters the method-4 node's getRT receives on
-    each frame of the bench's 313-frame flight (``BENCHMARK.json``'s
-    ``node_default_flight`` traffic, seed 0), recorded on the eager chain."""
+    """The window shifts and parameters the method-4 node's getRT and body
+    frame receive on each frame of the bench's 313-frame flight
+    (``BENCHMARK.json``'s ``node_default_flight`` traffic, seed 0), recorded
+    on the eager chain: ``(shifts, height, dt, ul, cam, dist, c2b, rate,
+    detilt)`` a frame."""
     import torch
 
     from bench_torch import traffic
@@ -4335,21 +4397,21 @@ def flight_windows(dev, n_frames: int = 313) -> list:
     frames, samples = frames[:n_frames], samples[:n_frames]
     sim.samples = samples
     got = []
-    real = node_mod.get_rt
+    real = node_mod.get_rt_body_frame
 
-    def recording(shifts, height, dt, ul, cam, dist, c2b, rate, **kw):
+    def recording(shifts, height, dt, ul, cam, dist, c2b, rate, detilt, **kw):
         got.append(tuple(t.clone() if torch.is_tensor(t) else t
-                         for t in (shifts, height, dt, ul, cam, dist, c2b, rate)))
-        return real(shifts, height, dt, ul, cam, dist, c2b, rate, **kw)
+                         for t in (shifts, height, dt, ul, cam, dist, c2b, rate, detilt)))
+        return real(shifts, height, dt, ul, cam, dist, c2b, rate, detilt, **kw)
 
     node = eager_chain(OpticFlowNode(NodeConfig(), device=dev, publish=lambda t, m: None, log=say))
     node.set_transforms(sim.c2b_quat)
-    node_mod.get_rt = recording
+    node_mod.get_rt_body_frame = recording
     try:
         stream = sim.events_into(FrameStream(node), frames)
         stream.run()
     finally:
-        node_mod.get_rt = real
+        node_mod.get_rt_body_frame = real
     return got
 
 
@@ -4369,7 +4431,7 @@ def check_get_rt_pairs(dev, windows: list) -> dict:
     gen.manual_seed(21)
     kw = dict(frame_size=480, patch=120, shifted_pts_thr=8, ransac_threshold=0.01)
     kern, plain, best, inl, n, plain_h = [], [], [], [], [], []
-    for shifts, height, dt, ul, cam, dist, c2b, rate in windows:
+    for shifts, height, dt, ul, cam, dist, c2b, rate, _ in windows:
         hyp = draw_hypotheses(torch.isfinite(shifts).all(-1), 512, gen)
         kern.append(launch_get_rt(shifts[None], height.reshape(1), dt.reshape(1), ul, cam, dist, c2b,
                                   rate[None], hyp_idx=hyp, debug=True, **kw))
@@ -4389,6 +4451,132 @@ def check_get_rt_pairs(dev, windows: list) -> dict:
     pl = type(plain[0])(*(torch.stack([r[i] for r in plain]) for i in range(6)))
     return g_compare(f"{len(windows)} flight frames, per pair", k, pl, torch.cat(best), torch.cat(inl),
                      torch.cat(n), torch.stack(plain_h))
+
+
+def ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Float32 ulps between ``a`` and ``b`` elementwise (0 where both are
+    NaN, a huge count where one is)."""
+    def order(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(2 ** 31) - i, i)
+
+    d = np.abs(order(a) - order(b))
+    both = np.isnan(a) & np.isnan(b)
+    return np.where(both, 0, np.where(np.isnan(a) | np.isnan(b), 2 ** 31, d))
+
+
+def gimbal_cases(dev, kw) -> list:
+    """Epilogue inputs whose body-frame rate is a pitch of +-pi/2 rad/s, the
+    gimbal of ``rpy_from_matrix``: one yawing pair's rotation (about the
+    camera's z) through a mount that takes that axis to the body's +-y, at
+    64 frame intervals around the one that makes its rate pi/2, with the IMU
+    rate set to that pitch; float32 rounding takes about half of them to
+    the gimbal branch and half just below it."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.geometry.homography import draw_hypotheses
+    from mrs_optic_flow_tpu_torch.geometry.motion import get_rt_ref
+
+    w = g_windows(3, 16, seed=33)
+    cam, dist = g_camera(dev)
+    shifts = torch.from_numpy(w["shifts"][2]).to(dev)
+    height = torch.tensor(float(w["heights"][2]), device=dev)
+    rate = torch.from_numpy(w["rates"][2]).to(dev)
+    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    hyp = draw_hypotheses(torch.isfinite(shifts).all(-1), 512, gen)
+    res = get_rt_ref(shifts, height, torch.tensor(DT, device=dev), 136.0, cam, dist, ident, rate,
+                     hyp_idx=hyp, **kw)
+    q = res.rot.double().cpu().numpy()
+    check(bool(res.ok) and np.isfinite(q).all(), "gimbal case: the yawing pair is not ok")
+    axis = q[:3] / np.linalg.norm(q[:3])
+    frame_angle = 2.0 * math.atan2(np.linalg.norm(q[:3]), q[3]) * DT
+    out = []
+    for sign in (1.0, -1.0):
+        target = np.array([0.0, sign, 0.0])
+        c = np.cross(axis, target)
+        c2b = np.append(c, 1.0 + axis @ target)
+        c2b = torch.tensor(c2b / np.linalg.norm(c2b), dtype=torch.float32, device=dev)
+        s = math.sin(math.pi / 4)
+        imu = torch.tensor([0.0, sign * s, 0.0, s], dtype=torch.float32, device=dev)
+        for k in range(-32, 32):
+            dt = np.float32(frame_angle / (math.pi / 2) * (1.0 + k * 2.0 ** -23))
+            out.append((shifts, height, torch.tensor(dt, device=dev), 136.0, cam, dist, c2b, imu,
+                        ident, hyp))
+    return out
+
+
+def check_get_rt_epilogue(dev, windows: list) -> dict:
+    """Phase 21, G's epilogue at B = 1 (the node's path): on the recorded
+    flight frames (their mount and detilt), on level pairs without yaw or
+    noise (the rate's rotation below ``quat_axis_angle``'s ``safe``
+    threshold: the axis (1, 0, 0)) and noisy yawing ones through ``G_C2B``
+    and ``G_DETILT``, with the NaN pairs, and on ``gimbal_cases``: the summary head against
+    ``rt_body_frame`` of G's own outputs (the epilogue alone: bit for bit,
+    or each field's largest difference in ulps) and against ``get_rt_ref``
+    then ``rt_body_frame`` (the whole of it; where G's twist is the plain
+    version's, the same head)."""
+    import torch
+
+    from mrs_optic_flow_tpu_torch.geometry.homography import draw_hypotheses
+    from mrs_optic_flow_tpu_torch.geometry.motion import GetRTResult, get_rt_ref, rt_body_frame
+    from mrs_optic_flow_tpu_torch.geometry.rotations import quat_axis_angle
+    from mrs_optic_flow_tpu_torch.ops.cuda_kernels import launch_get_rt
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    kw = dict(frame_size=480, patch=120, shifted_pts_thr=8, ransac_threshold=0.01)
+    cam, dist = g_camera(dev)
+    c2b = torch.tensor(G_C2B, device=dev)
+    detilt = torch.tensor(G_DETILT, device=dev)
+    cases = {"flight": [(*w, None) for w in windows], "gimbal": gimbal_cases(dev, kw)}
+    for label, yaw_rate, noise, seed in (("level", 0.0, 0.0, 31), ("yawing", 0.5, 0.02, 32)):
+        w = g_windows(24, 16, seed=seed, yaw_rate=yaw_rate, noise=noise)
+        x = {k: torch.from_numpy(v).to(dev) for k, v in w.items() if k != "patch"}
+        cases[label] = [(x["shifts"][i], x["heights"][i], x["dts"][i], 136.0, cam, None, c2b,
+                         x["rates"][i], detilt, None) for i in range(24)]
+    out = {}
+    for label, rows in cases.items():
+        kern, own, plain, near_identity = [], [], [], 0
+        for shifts, height, dt, ul, cam_i, dist_i, c2b_i, rate, detilt_i, hyp in rows:
+            if hyp is None:
+                hyp = draw_hypotheses(torch.isfinite(shifts).all(-1), 512, gen)
+            g = launch_get_rt(shifts[None], height.reshape(1), dt.reshape(1), ul, cam_i, dist_i, c2b_i,
+                              rate[None], hyp_idx=hyp, detilt=detilt_i, **kw)
+            res = GetRTResult(*(x[0] for x in g[:6]))
+            kern.append(g.summary[0])
+            own.append(rt_body_frame(res, c2b_i, detilt_i))
+            ref = get_rt_ref(shifts, height, dt, ul, cam_i, dist_i, c2b_i, rate, hyp_idx=hyp, **kw)
+            plain.append(rt_body_frame(ref, c2b_i, detilt_i))
+            axis, _ = quat_axis_angle(res.rot)
+            near_identity += bool(res.ok) and bool((axis == torch.tensor([1.0, 0.0, 0.0], device=dev)).all())
+        k, o, p = (torch.stack(v).cpu().numpy() for v in (kern, own, plain))
+        gimbal = int(np.sum((o[:, 4] == 0) & (o[:, 6] == 0) & (np.abs(o[:, 5]) == np.float32(math.pi / 2))))
+        u = ulps(k, o)
+        row = {"frames": len(rows), "ok": int(o[:, 0].sum()), "near_identity": near_identity,
+               "gimbal": gimbal, "equal": float(np.mean([np.array_equal(a, b, equal_nan=True)
+                                                        for a, b in zip(k, o)])),
+               "ulps": {f: int(u[:, i].max()) for i, f in enumerate(G_SUMMARY_FIELDS)},
+               "max_abs": {f: float(np.nanmax(np.abs(k[:, i] - o[:, i]), initial=0.0))
+                           for i, f in enumerate(G_SUMMARY_FIELDS)}}
+        if label != "gimbal":  # a gimbal scan's rate sits where one ulp of G's twist moves roll by pi
+            fin = np.isfinite(p[:, 1]) & np.isfinite(k[:, 1])
+            row["plain_equal"] = float(np.mean([np.array_equal(a, b, equal_nan=True) for a, b in zip(k, p)]))
+            row["plain_tran_max"] = float(np.abs(k[fin, 1:4] - p[fin, 1:4]).max(initial=0.0))
+            row["plain_ang_max"] = float(np.abs(k[fin, 4:7] - p[fin, 4:7]).max(initial=0.0))
+            check(np.array_equal(np.isnan(k), np.isnan(p)) and np.array_equal(k[:, [0, 7, 8]], p[:, [0, 7, 8]]),
+                  f"G epilogue [{label}]: ok, n_inliers, rejected or NaN differ from get_rt_ref's")
+            check(max(row["plain_tran_max"], row["plain_ang_max"]) <= G_TWIST_TOL,
+                  f"G epilogue [{label}]: {row}")
+        say(f"  G epilogue [{label}]: {json.dumps(row)}")
+        check(np.array_equal(np.isnan(k), np.isnan(o)), f"G epilogue [{label}]: NaN patterns differ")
+        check(row["equal"] == 1.0, f"G epilogue [{label}]: not bit for bit rt_body_frame of G's outputs: {row}")
+        out[label] = row
+    check(out["level"]["near_identity"] > 0, "G epilogue: no near-identity rate among the level pairs")
+    check(0 < out["gimbal"]["gimbal"] < out["gimbal"]["frames"],
+          f"G epilogue: the gimbal scan reached the gimbal branch {out['gimbal']['gimbal']} times")
+    return out
 
 
 def time_get_rt(dev, label: str) -> dict:
@@ -4436,7 +4624,15 @@ def time_get_rt(dev, label: str) -> dict:
     plain_by_name = own_by_kernel(plain, 2)
     work = geometry_work(iters, p, b)
     bound_ms, by = bound_of(work["ops"], work["bytes"])
-    out = {"ms": time_cuda(wrapper, 100), "own_ms": sum(ms for _, ms in by_name.values()),
+    extra = {}
+    if b == 1:  # the node's launch: with the body frame as its epilogue
+        detilt = torch.tensor(G_DETILT, device=dev)
+
+        def epilogue():
+            return launch_get_rt(*args, detilt=detilt, **kw)
+
+        extra["epilogue_own_ms"] = sum(ms for _, ms in own_by_kernel(epilogue, 50).values())
+    out = {"ms": time_cuda(wrapper, 100), "own_ms": sum(ms for _, ms in by_name.values()), **extra,
            "launches_a_call": sum(k for k, _ in by_name.values()),
            "entry_ms": time_cuda(entry, 50),
            "entry_own_ms": sum(ms for _, ms in entry_by_name.values()),
@@ -4462,7 +4658,9 @@ def run_get_rt_kernel(dev) -> dict:
         for p, iters in G_SHAPES:
             out["batched"][f"{b}x{iters}x{p}"] = check_get_rt_batched(dev, b, p, iters, case)
             case += 1
-    out["pairs"] = check_get_rt_pairs(dev, flight_windows(dev))
+    windows = flight_windows(dev)
+    out["pairs"] = check_get_rt_pairs(dev, windows)
+    out["epilogue"] = check_get_rt_epilogue(dev, windows)
     rows = list(out["batched"].values()) + [out["pairs"]]
     out["err"] = max(max(r["tran_max"], r["rot_max"]) for r in rows)
     out["err_p99"] = max(max(r["tran_p99"], r["rot_p99"]) for r in rows)
@@ -4470,7 +4668,8 @@ def run_get_rt_kernel(dev) -> dict:
     out["seconds"] = time.perf_counter() - t0
     say(f"[21 get_rt] {out['seconds']:.1f} s: kernel G equal to the plain version's RANSAC decisions "
         f"in {len(rows)} cases, twists within {out['err']:.3g} of its (99th percentile "
-        f"{out['err_p99']:.3g}); " + json.dumps(out["timed"]))
+        f"{out['err_p99']:.3g}); its epilogue bit for bit rt_body_frame of its outputs on "
+        f"{sum(r['frames'] for r in out['epilogue'].values())} pairs; " + json.dumps(out["timed"]))
     return out
 
 
@@ -4564,7 +4763,7 @@ def main() -> int:
     b1 = b["1x480"]
     d60 = d["64x60 u8"]
     e120 = e["16x120"]
-    g1, g4096 = g["timed"]["1x512x16"], g["timed"]["4096x256x16"]
+    g1 = g["timed"]["1x512x16"]
     rows = {
         "phase_correlate_frames": (launches_a, err_a, ms_a, own_a, plain_a, lib_a, lib_own_a,
                                    bound("phase_correlate_frames", b=1, n=120, q=4, itemsize=1)),
@@ -4583,11 +4782,17 @@ def main() -> int:
         "get_rt": (launches_node["get_rt"], g["err"], g1["ms"], g1["own_ms"], g1["plain_ms"], None,
                    None, (g1["bound_ms"], g1["bound_by"])),
     }
-    # kernel G also at the bench's batch (B = 4096, 256 hypotheses), and the
-    # 99th percentile of its twists' difference from the plain version
-    extra = {"get_rt": {"max_abs_err_p99": g["err_p99"], "plain_own_ms": g1["plain_own_ms"], "b4096": {
-        k: g4096[k] for k in ("ms", "own_ms", "plain_ms", "plain_own_ms", "entry_ms", "entry_own_ms",
-                              "bound_ms", "bound_by")}}}
+    # kernel G also at the fleet's tick, the ServingLoop batch and the
+    # bench's batch (B = 128, 512, 4096, 256 hypotheses), its epilogue's
+    # own time at the node's shape and its largest difference from
+    # rt_body_frame of G's outputs in ulps, and the 99th percentile of its
+    # twists' difference from the plain version
+    keys = ("ms", "own_ms", "plain_ms", "plain_own_ms", "entry_ms", "entry_own_ms", "bound_ms", "bound_by")
+    extra = {"get_rt": {
+        "max_abs_err_p99": g["err_p99"], "plain_own_ms": g1["plain_own_ms"],
+        "epilogue_own_ms": g1["epilogue_own_ms"],
+        "epilogue_ulps": max(max(r["ulps"].values()) for r in g["epilogue"].values()),
+        **{f"b{label.split('x')[0]}": {k: g["timed"][label][k] for k in keys} for label in G_TIMED[1:]}}}
     say(json.dumps({"serving": {"card": smi, **serving}}))
     say(json.dumps({"flights": {"card": smi, **flights}}))
     say(json.dumps({"kernels": [{

@@ -1,6 +1,7 @@
 // getRT in one launch, for Hopper (sm_90a): window shifts -> undistorted
 // points -> RANSAC homography -> refit -> Malis-Vargas decomposition -> the
-// IMU-nearest solution -> twist.  Kernel G of the port.
+// IMU-nearest solution -> twist, and on request the node's body frame of
+// it.  Kernel G of the port.
 //
 // Replaces no TPU kernel.  The JAX package computes getRT in XLA
 // (mrs_optic_flow_tpu/geometry/motion.py::get_rt and geometry/batched.py::
@@ -9,7 +10,11 @@
 // writes the reference's data-dependent algorithm as masked fixed-shape
 // tensor code, about 1,000 launches of tiny kernels a call, whatever the
 // batch.  This kernel does the same work in one launch, so that a node frame
-// and a pipeline call stop paying for those launches.
+// and a pipeline call stop paying for those launches.  Its epilogue is the
+// method-4 node's summary head (geometry/motion.py::rt_body_frame, the JAX
+// node's runtime/node.py:408-411): the detilted body-frame velocity and the
+// roll, pitch and yaw of the body-frame rate, about 100 launches of scalar
+// tensor code in the plain version.
 //
 // What bounds it on this card: its work is small.  The Gumbel draws
 // [I, P, B] float32 are the only large input (67.1 MB at I = 256, P = 16,
@@ -17,29 +22,34 @@
 // (hypothesis, point) and 160 a hypothesis plus the refit a pair, take
 // 0.011 ms at 67 TFLOP/s (scripts/profile_geometry_torch.py::geometry_work,
 // the bound of chip_smoke.py's row).  So the design aims at one launch and no
-// intermediate in device memory, not at the card's throughput:
-//  - one block a pair (B = 1 for the node, 4,096 blocks for the bench
-//    batch), up to 256 threads striding over the I hypotheses;
-//  - the pair's P points and valid flags in shared memory, computed by the
-//    first threads (grid centres, cx -= ulCorner.x, undistortion);
-//  - each thread draws, solves and scores its hypotheses in registers and
-//    keeps its best (count, lowest index) and that homography, the batched
-//    path's draws of a hypothesis read once into the thread's row of shared
-//    memory; a block reduction takes the argmax, and the winner's inlier
-//    set is computed again after it (storing every hypothesis's set would
+// intermediate in device memory, and at a batch at keeping every warp busy:
+//  - the pair's P points and valid flags in shared memory; each thread
+//    solves and scores hypotheses in registers and keeps its best (count,
+//    lowest index) and that homography; the winner's inlier set is
+//    computed again after the argmax (storing every hypothesis's set would
 //    take [I, P] flags);
 //  - one warp refits by Householder QR over the 2P x 9 system in shared
 //    memory; four of its lanes run the inverse iteration and the
 //    decomposition, each then one of the four solutions, and lane 0 the
-//    selection.
-// The draws of the batched path are read as the plain version lays them out,
-// [I, P, B]: a block reads its pair's column, P * B floats apart between
-// neighbouring threads, so each 4-byte read pulls a 32-byte sector that the
-// neighbouring pairs' blocks (consecutive block indices, in flight together)
-// read again from L2.  What holds a large batch back is the serial refit:
-// while one warp refits, the block's other warps wait, so small blocks, many
-// an SM, overlap it with other pairs' hypotheses (PERF.md,
-// scripts/tune_get_rt_kernel_torch.py).
+//    selection, the outputs and the epilogue.
+// The serial refit and the hypotheses' long dependent chains (IEEE
+// divisions, no contraction) make a pair's time latency, so the layout
+// gives each pair as many threads as the call leaves room for.  Two layouts
+// share those steps:
+//  - the block layout, a block of warps a pair: 256 threads up to one pair
+//    an SM (the node's B = 1, the fleet's 128), then the power of two of
+//    warps, 8 to 2, that fills kFillWarps warps an SM (the ServingLoop's
+//    512: 4); a block argmax, then warp 0 refits; on the batched path each
+//    thread copies its next hypothesis's draws into shared memory
+//    asynchronously (cp.async) while it scores the current one;
+//  - the warp layout, where that leaves one warp a pair (the bench's 4,096):
+//    GRT_PAIRS pairs a block, adjacent in B.  The block stages each chunk
+//    of 32 hypotheses' draws into a shared tile together, the next chunk in
+//    flight, so that at each (hypothesis, window) it reads one run of
+//    adjacent floats of the plain version's [I, P, B] layout where a thread
+//    a pair pulled a 32-byte sector for 4 bytes; each warp scores its pair's
+//    hypotheses, a lane each, takes its argmax with shuffles alone and
+//    refits at once: no warp waits on another pair's serial refit.
 //
 // Numerics.  Everything is float32 in the plain version's operation order,
 // and this file is built with -fmad=false (no contraction; IEEE division and
@@ -59,29 +69,43 @@
 // bench holds the card's twists to the plain version on the CPU within
 // 0.0075 m/s: a more exact float64 refit fails that (PERF.md).  Where an
 // order is not known (cuBLAS at batch 128, one pair at 72 or 128 rows),
-// the twist differs by that much.
+// the twist differs by that much.  The layout changes which thread does a
+// step, never its arithmetic: both give the same bits.  The epilogue's
+// transcendentals are the libdevice functions ATen's float32 kernels call
+// (acosf, sinf, cosf, asinf, atan2f).
 //
 // Plain C interface, loaded with ctypes.  The kernel allocates nothing and
 // does not synchronise; the caller passes every output and the stream.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace grt {
 
-// Two block shapes, each (threads a block at most, blocks an SM its
-// registers must leave room for, __launch_bounds__).  Up to one pair an SM
-// the latency shape: many threads, so that a pair's hypotheses finish soon.
-// Beyond it the throughput shape: small blocks, many of them an SM, so that
-// one block's serial refit overlaps the others' hypotheses.
-#ifndef GRT_WIDE_THREADS
-#define GRT_WIDE_THREADS 64
+// The block layout's threads a block at most (kMaxThreads), the warps an SM
+// that a pair's warps fill beyond one pair an SM (kFillWarps: the power of
+// two of warps a pair, 8 to 1; one warp is the warp layout), and the warp
+// layout's pairs a block (GRT_PAIRS, a warp each) and the blocks an SM its
+// registers must leave room for (GRT_PAIR_BLOCKS, __launch_bounds__).  A
+// tuning build sets GRT_WARP_LAYOUT 1: every batched call takes the warp
+// layout.
+#ifndef GRT_PAIRS
+#define GRT_PAIRS 8
 #endif
-#ifndef GRT_WIDE_BLOCKS
-#define GRT_WIDE_BLOCKS 8
+#ifndef GRT_PAIR_BLOCKS
+#define GRT_PAIR_BLOCKS 4
 #endif
-constexpr int kMaxThreads = 256;
+#ifndef GRT_WARP_LAYOUT
+#define GRT_WARP_LAYOUT 0
+#endif
+// GRT_SPAN(k): the boundary of phase k of one pair's getRT, empty here;
+// scripts/probe_get_rt_spans_torch.py defines it to record the SM clock.
+#ifndef GRT_SPAN
+#define GRT_SPAN(k)
+#endif
+constexpr int kMaxThreads = 256, kFillWarps = 16;
 // pi, pi + 1 and pi / 4 as float32, the values torch compares a float32
 // tensor with
 constexpr float kPi = 3.14159265358979f, kPiPlus1 = 4.14159265358979f, kPiQuarter = 0.785398163397448f;
@@ -111,6 +135,8 @@ struct Args {
   int* best_out;          // [B] or null: the best hypothesis
   unsigned char* inl_out;   // [B, P] or null: its inlier set
   float* h_out;           // [B, 9] or null: the refit homography
+  const float* detilt;    // [4], or null: no epilogue
+  float* summary;         // [B, 9] the epilogue's summary head (with detilt)
 };
 
 // ---------------------------------------------------------------- float32 --
@@ -212,45 +238,42 @@ __device__ __forceinline__ bool inlier(const float h[9], float x, float y, float
 // index; a NaN draw counts as the largest, as torch.argmax takes it; once
 // every candidate is -inf the round takes index 0).  Per pair: the given
 // row.
-__device__ void picks_of(const Args& a, int i, const float* col, long long stride,
-                         const unsigned char* valid, int n_valid, int k[4]) {
+template <int kP>
+__device__ __forceinline__ void picks_of(const Args& a, int i, const float* col, long long stride,
+                                         const unsigned char* valid, int n_valid, int k[4]) {
+  const int P = kP ? kP : a.p;
   if (a.hyp != nullptr) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const long long v = a.hyp[4LL * i + r];
-      k[r] = (v >= 0 && v < a.p) ? static_cast<int>(v) : 0;
+      k[r] = (v >= 0 && v < P) ? static_cast<int>(v) : 0;
     }
     return;
   }
   if (n_valid >= 4) {
     // one pass: the four largest valid draws, kept sorted, a later equal
-    // draw placed after an earlier one.  With four finite valid draws or
-    // more that is the four rounds' result; a NaN or infinite draw takes
-    // the rounds below.
+    // draw placed after an earlier one (an invalid window's draw taken as
+    // -inf, never placed).  With four finite valid draws or more that is
+    // the four rounds' result; a NaN or infinite draw takes the rounds
+    // below.  Selects, not branches: the lanes of a warp score different
+    // hypotheses.
     float t0 = -INFINITY, t1 = -INFINITY, t2 = -INFINITY, t3 = -INFINITY;
     int i0 = 0, i1 = 0, i2 = 0, i3 = 0;
     bool finite = true;
-    for (int p = 0; p < a.p; ++p) {
-      if (!valid[p]) continue;
-      const float v = col[stride * p];
-      finite = finite && fabsf(v) < INFINITY;
-      if (v > t3) {
-        if (v > t2) {
-          t3 = t2; i3 = i2;
-          if (v > t1) {
-            t2 = t1; i2 = i1;
-            if (v > t0) {
-              t1 = t0; i1 = i0; t0 = v; i0 = p;
-            } else {
-              t1 = v; i1 = p;
-            }
-          } else {
-            t2 = v; i2 = p;
-          }
-        } else {
-          t3 = v; i3 = p;
-        }
-      }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool ok = valid[p];
+      const float v = ok ? col[stride * p] : -INFINITY;
+      finite = finite && (!ok || fabsf(v) < INFINITY);
+      const bool c0 = v > t0, c1 = v > t1, c2 = v > t2, c3 = v > t3;  // c0 => c1 => c2 => c3
+      t3 = c2 ? t2 : (c3 ? v : t3);
+      i3 = c2 ? i2 : (c3 ? p : i3);
+      t2 = c1 ? t1 : (c2 ? v : t2);
+      i2 = c1 ? i1 : (c2 ? p : i2);
+      t1 = c0 ? t0 : (c1 ? v : t1);
+      i1 = c0 ? i0 : (c1 ? p : i1);
+      t0 = c0 ? v : t0;
+      i0 = c0 ? p : i0;
     }
     if (finite) {
       k[0] = i0; k[1] = i1; k[2] = i2; k[3] = i3;
@@ -260,7 +283,7 @@ __device__ void picks_of(const Args& a, int i, const float* col, long long strid
   for (int r = 0; r < 4; ++r) {
     int bi = 0;
     float bv = -INFINITY;
-    for (int p = 0; p < a.p; ++p) {
+    for (int p = 0; p < P; ++p) {
       bool taken = false;
       for (int s = 0; s < r; ++s) taken |= k[s] == p;
       const float v = (valid[p] && !taken) ? col[stride * p] : -INFINITY;
@@ -273,11 +296,12 @@ __device__ void picks_of(const Args& a, int i, const float* col, long long strid
   }
 }
 
-__device__ void hypothesis(const Args& a, int i, const float* col, long long stride,
+template <int kP>
+__device__ __forceinline__ void hypothesis(const Args& a, int i, const float* col, long long stride,
                            const unsigned char* valid, int n_valid, const float* ax,
                            const float* ay, const float* bx, const float* by, float h[9]) {
   int k[4];
-  picks_of(a, i, col, stride, valid, n_valid, k);
+  picks_of<kP>(a, i, col, stride, valid, n_valid, k);
   float xs[4], ys[4], us[4], vs[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -560,6 +584,40 @@ __device__ float quat_angle(const float a[4], const float b[4]) {
   return acosf(clamp(tsum(ab, 4) / sqrtf(tsum(aa, 4) * tsum(bb, 4)), -1.0f, 1.0f));
 }
 
+// The method-4 node's summary head of one pair's getRT (geometry/motion.py::
+// rt_body_frame, each step as torch takes it): [ok, tran_b (3), roll, pitch,
+// yaw, n_inliers, ang_diff_rejected].  tran_b = detilt * (c2b * tran)
+// (src/optic_flow.cpp:1694); the rate's axis into the body frame, rotation
+// only (:1747), then tf2's getRPY of its matrix (rotations.py::
+// rpy_from_matrix: roll and yaw 0 at the gimbal, |sin pitch| >= 1 - 1e-9,
+// which is 1 in float32).
+__device__ void body_frame(const float c2b[4], const float detilt[4], const float tran[3],
+                           const float rot[4], bool ok, int n_inl, bool rejected, float* out) {
+  float t_c[3], t_b[3];
+  quat_rotate(c2b, tran, t_c);
+  quat_rotate(detilt, t_c, t_b);
+  float axis[3], angle, axis_b[3], q[4];
+  quat_axis_angle(rot, axis, angle);
+  quat_rotate(c2b, axis, axis_b);
+  quat_from_axis_angle(axis_b, angle, q);
+  quat_normalize(q);  // matrix_from_quat
+  const float x = q[0], y = q[1], z = q[2], w = q[3];
+  const float m00 = 1.0f - 2.0f * (y * y + z * z);
+  const float m10 = 2.0f * (x * y + z * w);
+  const float m20 = 2.0f * (x * z - y * w);
+  const float m21 = 2.0f * (y * z + x * w);
+  const float m22 = 1.0f - 2.0f * (x * x + y * y);
+  const float sp = clamp(-m20, -1.0f, 1.0f);
+  const bool gimbal = fabsf(sp) >= 1.0f;
+  out[0] = ok ? 1.0f : 0.0f;
+  for (int k = 0; k < 3; ++k) out[1 + k] = t_b[k];
+  out[4] = gimbal ? 0.0f : atan2f(m21, m22);
+  out[5] = asinf(sp);
+  out[6] = gimbal ? 0.0f : atan2f(m10, m00);
+  out[7] = static_cast<float>(n_inl);
+  out[8] = rejected ? 1.0f : 0.0f;
+}
+
 // --------------------------------------------------------------- the kernel --
 
 
@@ -576,46 +634,66 @@ __device__ int product_scheme(int b, int M) {
   return kHalves;
 }
 
-__device__ float product(const float* v, const float* A, int k, int M, int scheme) {
+__device__ __forceinline__ float product(const float* v, const float* A, int k, int M, int scheme) {
   float acc0 = 0.0f, acc1 = 0.0f;
   if (scheme == kChain) {
+#pragma unroll 8
     for (int m = 0; m < M; ++m) acc0 = fmaf(v[m], A[9 * m + k], acc0);
     return acc0;
   }
   if (scheme == kEvenOdd) {
+#pragma unroll 8
     for (int m = 0; m < M; m += 2) acc0 = fmaf(v[m], A[9 * m + k], acc0);
+#pragma unroll 8
     for (int m = 1; m < M; m += 2) acc1 = fmaf(v[m], A[9 * m + k], acc1);
     return acc0 + acc1;
   }
   const int half = (M + 1) / 2;
+#pragma unroll 8
   for (int m = 0; m < half; ++m) acc0 = fmaf(v[m], A[9 * m + k], acc0);
+#pragma unroll 8
   for (int m = half; m < M; ++m) acc1 = fmaf(v[m], A[9 * m + k], acc1);
   return acc0 + acc1;
 }
 
+// One pair's shared memory
 struct Shared {
   float* a;    // [2P, 9] the refit system, row-major
   float* v;    // [2P] the Householder vector of the refit's current column
-  float* g;    // [threads, P + 1] each thread's column of draws (batched)
+  float* g;    // [2, threads, P + 1] two rows of draws a thread (batched block layout)
   float* ax;   // [P] each, zero at an invalid window
   float* ay;
   float* bx;
   float* by;
   unsigned char* valid;  // [P]
   unsigned char* inl;    // [P] the winner's inlier set
+  float* h_seed;         // [9] the winner's homography
+  float* w;              // [9] the refit's v^T A
 };
 
-// Dynamic shared memory of a block of `threads` at p windows; the batched
-// path stages each thread's column of draws (an odd row pitch, P + 1, keeps
-// the threads' rows on different banks).
+// Dynamic shared memory of a block-layout block of `threads` at p windows;
+// the batched path stages each thread's columns of draws, two rows a
+// thread, the one it scores and the next one in flight (an odd row pitch,
+// P + 1, keeps the threads' rows on different banks).  Such a block keeps
+// h_seed and w in static shared memory.
 __host__ __device__ inline long long smem_bytes(int p, int threads, bool batched) {
-  return 4LL * 20 * p + (batched ? 4LL * threads * (p + 1) : 0) + 4LL * 4 * p +
+  return 4LL * 20 * p + (batched ? 4LL * 2 * threads * (p + 1) : 0) + 4LL * 4 * p +
          ((2LL * p + 7) / 8) * 8;
 }
 
-// Threads a block: one a hypothesis up to `most`, whole warps, fewer where
-// the batched path's staged draws would pass the shared memory a block may
-// opt in to (smem_limit); 0 if even one warp does not fit.
+// A warp block's shared memory a pair (a warp): a block's without draws,
+// and h_seed and w; a multiple of 8 bytes.
+__host__ __device__ inline long long pair_smem_bytes(int p) { return smem_bytes(p, 0, false) + 4LL * 18; }
+
+// A warp block's two tiles of the draws of 32 hypotheses for its `pairs`
+// pairs, [32][P][pairs] each, a hypothesis's row padded by one float (the
+// lanes, a hypothesis each, read one pair's column on different banks)
+__host__ __device__ inline long long tile_bytes(int p, int pairs) { return 4LL * 2 * 32 * (p * pairs + 1); }
+
+// Threads a block of the block layout: one a hypothesis up to `most`, whole
+// warps, fewer where the batched path's staged draws would pass the shared
+// memory a block may opt in to (smem_limit); 0 if even one warp does not
+// fit.
 __host__ __device__ inline int block_threads(int p, int iters, bool batched, long long smem_limit,
                                              int most) {
   int t = iters < most ? iters : most;
@@ -624,33 +702,49 @@ __host__ __device__ inline int block_threads(int p, int iters, bool batched, lon
   return t;
 }
 
-template <int kThreads, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
-  extern __shared__ float smem_raw[];
-  const int P = a.p, pair = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+// Warps a pair of a call over b pairs on `sms` SMs beyond one pair an SM:
+// the power of two, 1 to 8, nearest below `fill` warps an SM.
+__host__ __device__ inline int pair_warps(int b, int sms, int fill) {
+  int w = 8;
+  while (w > 1 && static_cast<long long>(w) * b > static_cast<long long>(fill) * sms) w /= 2;
+  return w;
+}
+
+// Pairs a warp block of a call over b pairs on `sms` SMs: `most`, halved
+// while that leaves fewer blocks than SMs, fewer where the block's shared
+// memory would pass smem_limit; 0 if even one pair does not fit.
+__host__ __device__ inline int block_pairs(int b, int sms, int p, long long smem_limit, int most) {
+  int n = most;
+  while (n > 1 && static_cast<long long>(n) * sms > b) n /= 2;
+  while (n > 0 && n * pair_smem_bytes(p) + tile_bytes(p, n) > smem_limit) --n;
+  return n;
+}
+
+// Lays out one pair's shared memory from `base` for `threads` draw rows.
+__device__ Shared carve(float* base, int P, int threads, bool batched) {
   Shared sh;
-  const bool batched = a.hyp == nullptr;
-  sh.a = smem_raw;
+  sh.a = base;
   sh.v = sh.a + 18 * P;
   sh.g = sh.v + 2 * P;
-  sh.ax = sh.g + (batched ? nt * (P + 1) : 0);
+  sh.ax = sh.g + (batched ? 2 * threads * (P + 1) : 0);
   sh.ay = sh.ax + P;
   sh.bx = sh.ay + P;
   sh.by = sh.bx + P;
   sh.valid = reinterpret_cast<unsigned char*>(sh.by + P);
   sh.inl = sh.valid + P;
-  __shared__ float h_seed[9];
-  __shared__ int red_cnt[kThreads / 32], red_idx[kThreads / 32];
-  __shared__ int n_valid;
+  sh.h_seed = sh.w = nullptr;
+  return sh;
+}
 
-  // 1. points (motion.py::rt_points)
+// 1. points (motion.py::rt_points) by threads t = 0..nt-1; returns how many
+// of this thread's windows are valid
+__device__ int points(const Args& a, int pair, const Shared& sh, int t, int nt) {
+  const int P = a.p;
   const float fx = a.cam[0], fy = a.cam[4];
   const float ccx = a.cam[2] - (a.ulx != nullptr ? a.ulx[pair] : a.ulx_scalar);
   const float ccy = a.cam[5];
-  if (tid == 0) n_valid = 0;
-  __syncthreads();
   int my_valid = 0;
-  for (int p = tid; p < P; p += nt) {
+  for (int p = t; p < P; p += nt) {
     float sx = a.shifts[(static_cast<long long>(pair) * P + p) * 2];
     float sy = a.shifts[(static_cast<long long>(pair) * P + p) * 2 + 1];
     const bool v = isfinite(sx) && isfinite(sy);
@@ -670,71 +764,104 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
     sh.valid[p] = v;
     my_valid += v;
   }
-  if (my_valid) atomicAdd(&n_valid, my_valid);
-  __syncthreads();
+  return my_valid;
+}
 
-  // 2-3. hypotheses, each scored over the points; each thread keeps its best
-  // (most inliers, lowest index) and that hypothesis's homography
-  int my_cnt = -1, my_i = 0x7fffffff;
-  float my_h[9];
-  float* my_g = sh.g + tid * (P + 1);
-  for (int i = tid; i < a.iters; i += nt) {
-    if (batched) {  // the column once into this thread's row; P loads in flight
-      const float* g = a.gumbel + a.g_si * i + pair;
-      for (int p = 0; p < P; ++p) my_g[p] = __ldg(g + a.g_sp * p);
-    }
-    float h[9];
-    hypothesis(a, i, my_g, 1, sh.valid, n_valid, sh.ax, sh.ay, sh.bx, sh.by, h);
-    int cnt = 0;
-    for (int p = 0; p < P; ++p)
-      cnt += sh.valid[p] && inlier(h, sh.ax[p], sh.ay[p], sh.bx[p], sh.by[p], a.thr2);
-    if (cnt > my_cnt) {
-      my_cnt = cnt;
-      my_i = i;
+// Hypothesis i (its draws `col`, element stride `stride`) scored over the
+// points; kept as the thread's best if it has more inliers than that.
+// kMasked: every window tested (an invalid one's zeros too), then masked,
+// with no branch, which the warp layout and the per-pair path take; else
+// only the valid windows, which the batched block layout takes (each
+// measured the faster on its path on an H100; the count is the same).
+template <int kP, bool kMasked>
+__device__ __forceinline__ void score_one(const Args& a, int i, const float* col, long long stride,
+                                          const Shared& sh, int n_valid, int& my_cnt, int& my_i,
+                                          float my_h[9]) {
+  const int P = kP ? kP : a.p;
+  float h[9];
+  hypothesis<kP>(a, i, col, stride, sh.valid, n_valid, sh.ax, sh.ay, sh.bx, sh.by, h);
+  int cnt = 0;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) my_h[k] = h[k];
-    }
+  for (int p = 0; p < P; ++p) {
+    if (kMasked)
+      cnt += (sh.valid[p] != 0) & inlier(h, sh.ax[p], sh.ay[p], sh.bx[p], sh.by[p], a.thr2);
+    else
+      cnt += sh.valid[p] && inlier(h, sh.ax[p], sh.ay[p], sh.bx[p], sh.by[p], a.thr2);
   }
-  // 4. argmax over the block: the most inliers, the lowest index of equals
-  int best_cnt = my_cnt, best_i = my_i;
-  for (int o = 16; o > 0; o >>= 1) {
-    const int c = __shfl_xor_sync(0xffffffffu, best_cnt, o);
-    const int i = __shfl_xor_sync(0xffffffffu, best_i, o);
-    if (c > best_cnt || (c == best_cnt && i < best_i)) {
-      best_cnt = c;
-      best_i = i;
-    }
+  if (cnt > my_cnt) {
+    my_cnt = cnt;
+    my_i = i;
+#pragma unroll
+    for (int c = 0; c < 9; ++c) my_h[c] = h[c];
   }
-  const int warp = tid / 32, lane = tid % 32, warps = (nt + 31) / 32;
-  if (lane == 0) {
-    red_cnt[warp] = best_cnt;
-    red_idx[warp] = best_i;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < warps; ++w)
-      if (red_cnt[w] > best_cnt || (red_cnt[w] == best_cnt && red_idx[w] < best_i)) {
-        best_cnt = red_cnt[w];
-        best_i = red_idx[w];
-      }
-    red_cnt[0] = best_cnt;
-    red_idx[0] = best_i;
-  }
-  __syncthreads();
-  best_cnt = red_cnt[0];
-  best_i = red_idx[0];
-  if (my_i == best_i)  // the winner's owner: the homography it scored
-    for (int k = 0; k < 9; ++k) h_seed[k] = my_h[k];
-  __syncthreads();
-  // the winner's inlier set again, with the scoring's arithmetic
-  for (int p = tid; p < P; p += nt)
-    sh.inl[p] = sh.valid[p] && inlier(h_seed, sh.ax[p], sh.ay[p], sh.bx[p], sh.by[p], a.thr2);
-  __syncthreads();
-  if (warp != 0) return;
+}
 
-  // 5. the refit (homography.py::_solve_h_qr_null) by one warp: Householder
-  // QR of the weighted DLT rows (_dlt_rows), rows of the first point set
-  // then the second, a lane a row
+// Thread t's row of draws in buffer k (of 2) of a block of nt threads
+__device__ __forceinline__ float* draw_row(const Shared& sh, int P, int t, int nt, int k) {
+  return sh.g + static_cast<long long>(k * nt + t) * (P + 1);
+}
+
+// Hypothesis i's column of draws (batched; none past the last hypothesis)
+// into `row` by asynchronous copies, P in flight, as one commit group
+__device__ __forceinline__ void stage_draws(const Args& a, int pair, int i, float* row) {
+  if (i < a.iters) {
+    const float* g = a.gumbel + a.g_si * i + pair;
+    for (int p = 0; p < a.p; ++p) __pipeline_memcpy_async(row + p, g + a.g_sp * p, sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+// 2-3. hypotheses t, t + nt, ..., each scored over the points; the thread
+// keeps its best (most inliers, lowest index) and that hypothesis's
+// homography.  Batched, the caller has staged hypothesis t's draws into
+// buffer 0 (stage_draws); each hypothesis's draws land while the one before
+// is scored.
+template <int kP>
+__device__ void score(const Args& a, int pair, const Shared& sh, int n_valid, int t, int nt,
+                      int& my_cnt, int& my_i, float my_h[9]) {
+  const int P = kP ? kP : a.p;
+  const bool batched = a.hyp == nullptr;
+  my_cnt = -1;
+  my_i = 0x7fffffff;
+  int k = 0;
+  for (int i = t; i < a.iters; i += nt, k ^= 1) {
+    const float* my_g = draw_row(sh, P, t, nt, k);
+    if (batched) {
+      stage_draws(a, pair, i + nt, draw_row(sh, P, t, nt, k ^ 1));
+      __pipeline_wait_prior(1);  // all but the group just committed: this row's
+    }
+    if (batched)
+      score_one<kP, false>(a, i, my_g, 1, sh, n_valid, my_cnt, my_i, my_h);
+    else
+      score_one<kP, true>(a, i, my_g, 1, sh, n_valid, my_cnt, my_i, my_h);
+  }
+  if (batched) __pipeline_wait_prior(0);
+}
+
+// The argmax of a warp's (count, index): the most inliers, the lowest index
+// of equals; every lane gets it
+__device__ __forceinline__ void warp_argmax(int& cnt, int& idx) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const int c = __shfl_xor_sync(0xffffffffu, cnt, o);
+    const int i = __shfl_xor_sync(0xffffffffu, idx, o);
+    if (c > cnt || (c == cnt && i < idx)) {
+      cnt = c;
+      idx = i;
+    }
+  }
+}
+
+// 5-6. the rest of one pair's getRT by one whole warp, after the argmax and
+// the winner's inlier set: the refit, the decomposition, the selection, the
+// outputs and the epilogue
+template <int kP>
+__device__ void refit_and_solve(const Args& a, int pair, const Shared& sh, int n_valid,
+                                int best_cnt, int best_i, int lane) {
+  const int P = kP ? kP : a.p;
+  const bool batched = a.hyp == nullptr;
+  // 5. the refit (homography.py::_solve_h_qr_null): Householder QR of the
+  // weighted DLT rows (_dlt_rows), rows of the first point set then the
+  // second, a lane a row
   const int M = 2 * P;
   float* A = sh.a;
   for (int m = lane; m < M; m += 32) {
@@ -759,7 +886,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
   int bw = 1;
   while (bw * 2 <= (vec4 ? M / 4 : M) && bw < 32) bw *= 2;
   const int scheme = product_scheme(a.b, M);
-  __shared__ float w_sh[9];
   for (int j = 0; j < 9; ++j) {
     float vs = 0.0f;  // the column's norm below row j - 1: 4 accumulators, then a tree
     if (lane < bw) {
@@ -807,15 +933,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
       sh.v[m] = !safe ? 0.0f : (m == j ? 1.0f : (m > j ? A[9 * m + j] : 0.0f) / u1s);
     __syncwarp();
     // w = v^T A, a lane a column, in cuBLAS's order for torch.einsum
-    if (lane < 9) w_sh[lane] = product(sh.v, A, lane, M, scheme);
+    if (lane < 9) sh.w[lane] = product(sh.v, A, lane, M, scheme);
     __syncwarp();
     for (int m = lane; m < M; m += 32) {
       if (m < j) continue;
       const float tv = tau * sh.v[m];
-      for (int k = j; k < 9; ++k) A[9 * m + k] = A[9 * m + k] - tv * w_sh[k];
+      for (int k = j; k < 9; ++k) A[9 * m + k] = A[9 * m + k] - tv * sh.w[k];
     }
     __syncwarp();
   }
+  GRT_SPAN(4);
   // lanes 0-3 each run the rest on the same numbers, lane s taking solution
   // s of the decomposition; lane 0 writes the results
   if (lane >= 4) return;
@@ -832,7 +959,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
     R[i * 9 + i] = fabsf(d) > 1e-12f ? d : 1e-12f;
   }
   float x[9], z[9];
-  for (int k = 0; k < 9; ++k) x[k] = h_seed[k];
+  for (int k = 0; k < 9; ++k) x[k] = sh.h_seed[k];
   float nx;
   if (batched) {
     // the batched seed is a strided view ([9, B] transposed): torch's
@@ -867,11 +994,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
   const bool h_ok = best_cnt >= 4;
   for (int k = 0; k < 9; ++k) h[k] = h_ok ? x[k] / h22 : ((k % 4 == 0) ? 1.0f : 0.0f);
 
+  GRT_SPAN(5);
   // 6. decomposition and solution selection (motion.py::rt_solution)
   const float dt = a.dts[pair], height = a.heights[pair];
   bool ok = isfinite(1.0f / dt) && n_valid >= a.thr_pts && h_ok && best_cnt >= a.thr_pts;
   Decomposition dec;
   decompose(h, dec);
+  GRT_SPAN(6);
   const float c2b[4] = {a.c2b[0], a.c2b[1], a.c2b[2], a.c2b[3]};
   const float* rq = a.rate + 4LL * pair;
   const float rate[4] = {rq[0], rq[1], rq[2], rq[3]};
@@ -896,6 +1025,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
                               __shfl_sync(kLanes, axis[2], best, 4)};
   const float best_angle = __shfl_sync(kLanes, angle, best, 4);
   if (lane != 0) return;
+  GRT_SPAN(7);
   const float best_diff = diffs[best];
   const bool found = best_diff < kPi;  // bestIndex stays -1 otherwise (strict <)
   ok = ok && found;
@@ -916,10 +1046,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
   for (int k = 0; k < 3; ++k) finite = finite && isfinite(tran[k]);
   for (int k = 0; k < 4; ++k) finite = finite && isfinite(rot[k]);
   ok = ok && finite;
+  for (int k = 0; k < 3; ++k) tran[k] = ok ? tran[k] : NAN;
+  for (int k = 0; k < 4; ++k) rot[k] = ok ? rot[k] : NAN;
 
+  GRT_SPAN(8);
   a.ok[pair] = ok;
-  for (int k = 0; k < 4; ++k) a.rot[4LL * pair + k] = ok ? rot[k] : NAN;
-  for (int k = 0; k < 3; ++k) a.tran[3LL * pair + k] = ok ? tran[k] : NAN;
+  for (int k = 0; k < 4; ++k) a.rot[4LL * pair + k] = rot[k];
+  for (int k = 0; k < 3; ++k) a.tran[3LL * pair + k] = tran[k];
   if (a.n_inl64)
     static_cast<long long*>(a.n_inl)[pair] = best_cnt;
   else
@@ -931,52 +1064,245 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) get_rt_kernel(Args a) {
     for (int p = 0; p < P; ++p) a.inl_out[static_cast<long long>(pair) * P + p] = sh.inl[p];
   if (a.h_out != nullptr)
     for (int k = 0; k < 9; ++k) a.h_out[9LL * pair + k] = h[k];
+  GRT_SPAN(9);
+  if (a.summary != nullptr) {
+    const float detilt[4] = {a.detilt[0], a.detilt[1], a.detilt[2], a.detilt[3]};
+    body_frame(c2b, detilt, tran, rot, ok, best_cnt, rejected, a.summary + 9LL * pair);
+  }
+  GRT_SPAN(10);
+}
+
+// The block layout: one block a pair.  kP: the window count, compiled in
+// (16, the main path's 4 x 4 grid), or 0 for any.
+template <int kP>
+__global__ void __launch_bounds__(kMaxThreads, 1) get_rt_kernel(Args a) {
+  extern __shared__ float smem_raw[];
+  const int P = kP ? kP : a.p, pair = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  Shared sh = carve(smem_raw, P, nt, a.hyp == nullptr);
+  __shared__ float h_seed[9], w_sh[9];
+  __shared__ int red_cnt[kMaxThreads / 32], red_idx[kMaxThreads / 32];
+  __shared__ int n_valid;
+  sh.h_seed = h_seed;
+  sh.w = w_sh;
+
+  GRT_SPAN(0);
+  if (a.hyp == nullptr) stage_draws(a, pair, tid, draw_row(sh, P, tid, nt, 0));  // lands during the points
+  if (tid == 0) n_valid = 0;
+  __syncthreads();
+  const int my_valid = points(a, pair, sh, tid, nt);
+  if (my_valid) atomicAdd(&n_valid, my_valid);
+  __syncthreads();
+
+  GRT_SPAN(1);
+  int my_cnt, my_i;
+  float my_h[9];
+  score<kP>(a, pair, sh, n_valid, tid, nt, my_cnt, my_i, my_h);
+  GRT_SPAN(2);
+  // 4. argmax over the block: the most inliers, the lowest index of equals
+  int best_cnt = my_cnt, best_i = my_i;
+  warp_argmax(best_cnt, best_i);
+  const int warp = tid / 32, lane = tid % 32, warps = (nt + 31) / 32;
+  if (lane == 0) {
+    red_cnt[warp] = best_cnt;
+    red_idx[warp] = best_i;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < warps; ++w)
+      if (red_cnt[w] > best_cnt || (red_cnt[w] == best_cnt && red_idx[w] < best_i)) {
+        best_cnt = red_cnt[w];
+        best_i = red_idx[w];
+      }
+    red_cnt[0] = best_cnt;
+    red_idx[0] = best_i;
+  }
+  __syncthreads();
+  best_cnt = red_cnt[0];
+  best_i = red_idx[0];
+  if (my_i == best_i)  // the winner's owner: the homography it scored
+    for (int k = 0; k < 9; ++k) h_seed[k] = my_h[k];
+  __syncthreads();
+  // the winner's inlier set again, with the scoring's arithmetic
+  for (int p = tid; p < P; p += nt)
+    sh.inl[p] = sh.valid[p] && inlier(h_seed, sh.ax[p], sh.ay[p], sh.bx[p], sh.by[p], a.thr2);
+  __syncthreads();
+  GRT_SPAN(3);
+  if (warp != 0) return;
+  refit_and_solve<kP>(a, pair, sh, n_valid, best_cnt, best_i, lane);
+}
+
+// Chunk c's draws (hypotheses 32 c .. 32 c + 31) of a warp block's `wb`
+// pairs from pair0 into `tile` ([32][P][W], rows padded by one float) by
+// asynchronous copies from the whole block, as one commit group: each
+// (hypothesis, window) a run of wb adjacent floats of the [I, P, B] draws.
+__device__ __forceinline__ void stage_tile(const Args& a, int pair0, int wb, int W, int c, float* tile) {
+  const int P = a.p, run = P * wb, n = 32 * run;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int il = e / run, r = e - il * run, p = r / wb, w = r - p * wb;
+    const int i = 32 * c + il;
+    if (i < a.iters) {
+      const float* g = a.gumbel + a.g_si * i + a.g_sp * p + pair0 + w;
+      __pipeline_memcpy_async(tile + il * (P * W + 1) + p * W + w, g, sizeof(float));
+    }
+  }
+  __pipeline_commit();
+}
+
+// The warp layout (batched): a warp a pair, blockDim.x / 32 pairs a block,
+// adjacent in B.  The block stages each chunk of 32 hypotheses' draws into
+// shared memory together, the next chunk in flight while the warps score
+// the current one, lane l hypothesis 32 c + l of its warp's pair; after the
+// last chunk each warp takes its argmax with shuffles and refits on its
+// own: no barrier spans the block after the hypotheses.
+template <int kPairs, int kMinBlocks, int kP>
+__global__ void __launch_bounds__(32 * kPairs, kMinBlocks) get_rt_warp_kernel(Args a) {
+  extern __shared__ float smem_raw[];
+  const int P = kP ? kP : a.p, warp = threadIdx.x / 32, lane = threadIdx.x % 32, W = blockDim.x / 32;
+  const int pair0 = blockIdx.x * W, pair = pair0 + warp;
+  const int wb = a.b - pair0 < W ? a.b - pair0 : W;  // pairs of this block
+  const bool active = warp < wb;
+  const int tile_floats = 32 * (P * W + 1);
+  float* tiles = smem_raw;
+  Shared sh = carve(tiles + 2 * tile_floats + warp * (pair_smem_bytes(P) / 4), P, 0, false);
+  sh.h_seed = reinterpret_cast<float*>(sh.valid + ((2 * P + 7) / 8) * 8);  // after the flags
+  sh.w = sh.h_seed + 9;
+
+  const int chunks = (a.iters + 31) / 32;
+  GRT_SPAN(0);
+  stage_tile(a, pair0, wb, W, 0, tiles);  // lands during the points
+  int n_valid = 0;
+  if (active) {
+    n_valid = __reduce_add_sync(0xffffffffu, points(a, pair, sh, lane, 32));
+    __syncwarp();
+  }
+  GRT_SPAN(1);
+  int my_cnt = -1, my_i = 0x7fffffff;
+  float my_h[9];
+  for (int c = 0; c < chunks; ++c) {
+    // the next chunk into the other tile (past the last one: an empty group)
+    stage_tile(a, pair0, wb, W, c + 1, tiles + ((c + 1) & 1) * tile_floats);
+    __pipeline_wait_prior(1);  // this thread's copies of chunk c
+    __syncthreads();           // and every thread's
+    const int i = 32 * c + lane;
+    if (active && i < a.iters)
+      score_one<kP, true>(a, i, tiles + (c & 1) * tile_floats + lane * (P * W + 1) + warp, W, sh, n_valid,
+                          my_cnt, my_i, my_h);
+    __syncthreads();  // chunk c read before chunk c + 2 lands in its tile
+  }
+  GRT_SPAN(2);
+  __pipeline_wait_prior(0);
+  if (!active) return;
+  int best_cnt = my_cnt, best_i = my_i;
+  warp_argmax(best_cnt, best_i);
+  if (my_i == best_i)
+    for (int k = 0; k < 9; ++k) sh.h_seed[k] = my_h[k];
+  __syncwarp();
+  for (int p = lane; p < P; p += 32)
+    sh.inl[p] = sh.valid[p] && inlier(sh.h_seed, sh.ax[p], sh.ay[p], sh.bx[p], sh.by[p], a.thr2);
+  __syncwarp();
+  GRT_SPAN(3);
+  refit_and_solve<kP>(a, pair, sh, n_valid, best_cnt, best_i, lane);
+}
+
+// The most dynamic shared memory this library has allowed each kernel so
+// far, [kP == 16][warp layout].  Not a static inside launch: GCC makes a
+// template's local static one symbol across every loaded build of this file
+// (STB_GNU_UNIQUE), and a tuning variant would then skip its own kernel's
+// opt-in.
+static long long smem_set[2][2] = {{48 * 1024, 48 * 1024}, {48 * 1024, 48 * 1024}};
+
+// Launches kernel G's layout with kP windows compiled in (0: any).
+template <int kP>
+int launch(const Args& a, bool warp, int threads, long long smem, cudaStream_t s) {
+  auto warp_kernel = get_rt_warp_kernel<GRT_PAIRS, GRT_PAIR_BLOCKS, kP>;
+  long long& set = smem_set[kP == 16][warp];
+  if (smem > set) {
+    const int bytes = static_cast<int>(smem);
+    const cudaError_t err =
+        warp ? cudaFuncSetAttribute(warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaFuncSetAttribute(get_rt_kernel<kP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set = smem;
+  }
+  if (warp)
+    warp_kernel<<<(a.b + threads / 32 - 1) / (threads / 32), threads, smem, s>>>(a);
+  else
+    get_rt_kernel<kP><<<a.b, threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace grt
 
 extern "C" {
 
-// Dynamic shared memory of a block of `threads` at p windows, in bytes.
+// Dynamic shared memory of a block-layout block of `threads` at p windows,
+// of one pair of a warp block, and of a warp block's two tiles of draws for
+// `pairs` pairs, in bytes.
 long long grt_smem_bytes(int p, int threads, int batched) {
   return grt::smem_bytes(p, threads, batched != 0);
 }
 
-// Threads a block of a call over b pairs on the current device, and its
-// shape: the latency shape up to one pair an SM, else the throughput shape
-// (`wide`); 0 threads where p does not fit the device's shared memory.
-static int launch_shape(int b, int p, int iters, bool batched, bool* wide) {
+long long grt_pair_smem_bytes(int p) { return grt::pair_smem_bytes(p); }
+
+long long grt_tile_bytes(int p, int pairs) { return grt::tile_bytes(p, pairs); }
+
+// The launch of a call over b pairs on the current device: threads a block
+// (0 where p does not fit the device's shared memory), its dynamic shared
+// memory, and whether it is the warp layout (`warp`): kMaxThreads threads a
+// pair up to one pair an SM, then pair_warps' warps a pair, one warp the
+// warp layout (batched only; every batched call with GRT_WARP_LAYOUT).
+static int launch_shape(int b, int p, int iters, bool batched, bool* warp, long long* smem) {
   int dev = 0, optin = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
-  *wide = b > sms;
-  return grt::block_threads(p, iters, batched, optin - 1024,
-                            *wide ? GRT_WIDE_THREADS : grt::kMaxThreads);
+  const long long limit = optin - 1024;
+  const int warps = GRT_WARP_LAYOUT && batched ? 1
+                    : b > sms                   ? grt::pair_warps(b, sms, grt::kFillWarps)
+                                                : grt::kMaxThreads / 32;
+  *warp = batched && warps == 1;
+  if (*warp) {
+    const int pairs = grt::block_pairs(b, sms, p, limit, GRT_PAIRS);
+    *smem = pairs * grt::pair_smem_bytes(p) + grt::tile_bytes(p, pairs);
+    return 32 * pairs;
+  }
+  const int threads = grt::block_threads(p, iters, batched, limit, 32 * warps);
+  *smem = grt::smem_bytes(p, threads, batched);
+  return threads;
 }
 
 int grt_block_threads(int b, int p, int iters, int batched) {
-  bool wide = false;
-  return launch_shape(b, p, iters, batched != 0, &wide);
+  bool warp = false;
+  long long smem = 0;
+  return launch_shape(b, p, iters, batched != 0, &warp, &smem);
 }
 
-// getRT of b pairs of p = q x q window shifts on `stream`, one block a pair.
-// Per pair (hyp non-null, b = 1): the hypotheses are hyp's `iters` rows of 4
-// point indices, normalized by h22.  Batched (gumbel non-null): each
-// hypothesis is the top 4 of its column of draws [iters, p, b] (element
-// strides g_si, g_sp, 1), normalized by its largest entry.  ulx: one crop
-// offset a pair, or null for ulx_scalar; dist null for a distortion-free
-// camera.  n_inl is int64 where n_inl64 != 0, else int32; best, inl and h
-// may be null.  Returns the CUDA error code of the launch (0 on success).
+long long grt_block_smem(int b, int p, int iters, int batched) {
+  bool warp = false;
+  long long smem = 0;
+  launch_shape(b, p, iters, batched != 0, &warp, &smem);
+  return smem;
+}
+
+// getRT of b pairs of p = q x q window shifts on `stream`.  Per pair (hyp
+// non-null, b = 1): the hypotheses are hyp's `iters` rows of 4 point
+// indices, normalized by h22.  Batched (gumbel non-null): each hypothesis is
+// the top 4 of its column of draws [iters, p, b] (element strides g_si,
+// g_sp, 1), normalized by its largest entry.  ulx: one crop offset a pair,
+// or null for ulx_scalar; dist null for a distortion-free camera.  n_inl is
+// int64 where n_inl64 != 0, else int32; best, inl and h may be null.  With
+// detilt [4] non-null, summary [b, 9] receives each pair's body-frame
+// summary head.  Returns the CUDA error code of the launch (0 on success).
 int grt_get_rt(const void* shifts, const void* heights, const void* dts, const void* ulx,
                float ulx_scalar, const void* cam, const void* dist, const void* c2b,
                const void* rate, const void* hyp, const void* gumbel, long long g_si,
                long long g_sp, int b, int p, int q, int patch, int iters, int thr_pts, float thr2,
                void* ok, void* rot, void* tran, void* n_inl, int n_inl64, void* ang_diff,
-               void* rejected, void* best, void* inl, void* h, void* stream) {
+               void* rejected, const void* detilt, void* summary, void* best, void* inl, void* h,
+               void* stream) {
   if (b < 1 || 2 * p < 9 || p != q * q || iters < 1 || (hyp == nullptr) == (gumbel == nullptr) ||
-      (hyp != nullptr && b != 1))
+      (hyp != nullptr && b != 1) || (detilt == nullptr) != (summary == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   grt::Args a;
   a.shifts = static_cast<const float*>(shifts);
@@ -1009,23 +1335,15 @@ int grt_get_rt(const void* shifts, const void* heights, const void* dts, const v
   a.best_out = static_cast<int*>(best);
   a.inl_out = static_cast<unsigned char*>(inl);
   a.h_out = static_cast<float*>(h);
-  const bool batched = hyp == nullptr;
-  bool wide = false;
-  const int threads = launch_shape(b, p, iters, batched, &wide);
+  a.detilt = static_cast<const float*>(detilt);
+  a.summary = static_cast<float*>(summary);
+  bool warp = false;
+  long long smem = 0;
+  const int threads = launch_shape(b, p, iters, hyp == nullptr, &warp, &smem);
   if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = wide ? grt::get_rt_kernel<GRT_WIDE_THREADS, GRT_WIDE_BLOCKS>
-                     : grt::get_rt_kernel<grt::kMaxThreads, 1>;
-  const long long smem = grt::smem_bytes(p, threads, batched);
-  // the most this process has allowed each shape so far
-  static long long smem_set[2] = {48 * 1024, 48 * 1024};
-  if (smem > smem_set[wide]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[wide] = smem;
-  }
-  kernel<<<b, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  // the main path's 16 windows compiled in, any other count at run time
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p == 16 ? grt::launch<16>(a, warp, threads, smem, s) : grt::launch<0>(a, warp, threads, smem, s);
 }
 
 }  // extern "C"

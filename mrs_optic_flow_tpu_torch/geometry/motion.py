@@ -13,8 +13,10 @@ between :func:`get_rt_ref` (:func:`~.homography.find_homography_ransac`) and
 the batched :func:`~.batched.get_rt_batch_ref`.  These torch functions are
 the plain version of kernel G (``ops/cuda_kernels.py::get_rt``,
 ``csrc/get_rt.cu``): :func:`get_rt` runs them on CPU tensors and launches G
-on CUDA tensors.  Nothing here reads a value back to the host or builds a
-constant from it.
+on CUDA tensors; :func:`rt_body_frame`, the method-4 node's body frame of a
+getRT result, is the plain version of G's epilogue, and
+:func:`get_rt_body_frame` runs both in one launch.  Nothing here reads a
+value back to the host or builds a constant from it.
 
 The documented deviations of the JAX module carry over: the rotation axis is
 rotated into the body frame without the camera->base translation
@@ -38,12 +40,14 @@ from mrs_optic_flow_tpu_torch.geometry.homography import (
     find_homography_ransac,
 )
 from mrs_optic_flow_tpu_torch.geometry.rotations import (
+    matrix_from_quat,
     quat_angle,
     quat_axis_angle,
     quat_from_axis_angle,
     quat_from_matrix,
     quat_inverse,
     quat_rotate,
+    rpy_from_matrix,
 )
 from mrs_optic_flow_tpu_torch.geometry.undistort import undistort_xy
 from mrs_optic_flow_tpu_torch.ops import cuda_kernels
@@ -221,14 +225,24 @@ def get_rt(
         return get_rt_ref(shifts, height, dt, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat,
                           ang_rate_quat, generator=generator, hyp_idx=hyp_idx,
                           ransac_iterations=ransac_iterations, **kw)
+    res = _launch_g(shifts, height, dt, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat, ang_rate_quat,
+                    generator, hyp_idx, ransac_iterations, kw)
+    return GetRTResult(*(x[0] for x in res[:6]))
+
+
+def _launch_g(shifts, height, dt, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat, ang_rate_quat,
+              generator, hyp_idx, ransac_iterations, kw, detilt_quat=None):
+    """Kernel G on one pair of CUDA tensors: its hypotheses drawn as
+    :func:`get_rt_ref` draws them unless ``hyp_idx`` gives them; with
+    ``detilt_quat`` the body frame as its epilogue."""
     if hyp_idx is None:
         hyp_idx = draw_hypotheses(torch.isfinite(shifts).all(dim=-1), ransac_iterations, generator)
-    res = cuda_kernels.get_rt(
+    return cuda_kernels.get_rt(
         shifts.contiguous()[None], _one(height, shifts), _one(dt, shifts), ul_corner_x,
         camera_matrix.contiguous(), None if dist_coeffs is None else dist_coeffs.contiguous(),
-        c2b_quat.contiguous(), ang_rate_quat.contiguous()[None], hyp_idx=hyp_idx.contiguous(), **kw,
+        c2b_quat.contiguous(), ang_rate_quat.contiguous()[None], hyp_idx=hyp_idx.contiguous(),
+        detilt=None if detilt_quat is None else detilt_quat.contiguous(), **kw,
     )
-    return GetRTResult(*(x[0] for x in res[:6]))
 
 
 def get_rt_ref(
@@ -272,6 +286,61 @@ def get_rt_ref(
         c2b_quat, ang_rate_quat[None], shifted_pts_thr=shifted_pts_thr,
     )
     return GetRTResult(*(x[0] for x in res))
+
+
+def rt_body_frame(res: GetRTResult, c2b_quat: torch.Tensor, detilt_quat: torch.Tensor) -> torch.Tensor:
+    """The method-4 node's summary head of a getRT result (the JAX node's
+    ``runtime/node.py:408-417``): ``[..., 9]`` float32 ``[ok, tran_b (3),
+    roll, pitch, yaw, n_inliers, ang_diff_rejected]``, the velocity detilted
+    in the body frame and the rate's roll, pitch and yaw with its axis
+    rotated into the body frame.  The plain version of kernel G's
+    epilogue."""
+    # detilt * (C2B * tran) (src/optic_flow.cpp:1694); the rotation axis
+    # into the body frame, rotation only (:1747)
+    tran_b = quat_rotate(detilt_quat, quat_rotate(c2b_quat, res.tran))
+    axis, angle = quat_axis_angle(res.rot)
+    rot_b = quat_from_axis_angle(quat_rotate(c2b_quat, axis), angle)
+    ang = torch.stack(rpy_from_matrix(matrix_from_quat(rot_b)), dim=-1)
+
+    def flag(x):
+        return x.to(torch.float32)[..., None]
+
+    return torch.cat([flag(res.ok), tran_b, ang, flag(res.n_inliers), flag(res.ang_diff_rejected)], dim=-1)
+
+
+def get_rt_body_frame(
+    shifts: torch.Tensor,
+    height: torch.Tensor,
+    dt: torch.Tensor,
+    ul_corner_x: float,
+    camera_matrix: torch.Tensor,
+    dist_coeffs: torch.Tensor,
+    c2b_quat: torch.Tensor,
+    ang_rate_quat: torch.Tensor,
+    detilt_quat: torch.Tensor,
+    *,
+    frame_size: int,
+    patch: int,
+    generator: Optional[torch.Generator] = None,
+    hyp_idx: Optional[torch.Tensor] = None,
+    shifted_pts_thr: int = 8,
+    ransac_threshold: float = 0.01,
+    ransac_iterations: int = 512,
+) -> torch.Tensor:
+    """:func:`get_rt` of one pair, then :func:`rt_body_frame`: the summary
+    head ``[9]``.  CPU tensors run :func:`get_rt_ref` and
+    :func:`rt_body_frame`.  CUDA tensors draw the hypotheses as :func:`get_rt`
+    does and launch kernel G once, the body frame as its epilogue."""
+    kw = dict(frame_size=frame_size, patch=patch, shifted_pts_thr=shifted_pts_thr,
+              ransac_threshold=ransac_threshold)
+    if shifts.device.type == "cpu":
+        res = get_rt_ref(shifts, height, dt, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat,
+                         ang_rate_quat, generator=generator, hyp_idx=hyp_idx,
+                         ransac_iterations=ransac_iterations, **kw)
+        return rt_body_frame(res, c2b_quat, detilt_quat)
+    res = _launch_g(shifts, height, dt, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat, ang_rate_quat,
+                    generator, hyp_idx, ransac_iterations, kw, detilt_quat)
+    return res.summary[0]
 
 
 class Get2DTResult(NamedTuple):

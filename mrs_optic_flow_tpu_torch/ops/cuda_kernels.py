@@ -25,9 +25,11 @@ Pallas SAD kernel in :mod:`mrs_optic_flow_tpu.ops.block_matching`:
 
 Kernel G, :func:`get_rt`, replaces no TPU kernel (the JAX package computes
 getRT in XLA): window shifts to twist in one launch, in place of the plain
-version's ~1,000 (``csrc/get_rt.cu``); its plain version is the torch
+version's ~1,000 (``csrc/get_rt.cu``), and on request the method-4 node's
+body-frame summary head as its epilogue; its plain version is the torch
 geometry, :func:`~mrs_optic_flow_tpu_torch.geometry.motion.get_rt_ref` and
-:func:`~mrs_optic_flow_tpu_torch.geometry.batched.get_rt_batch_ref`.
+:func:`~mrs_optic_flow_tpu_torch.geometry.batched.get_rt_batch_ref`, then
+:func:`~mrs_optic_flow_tpu_torch.geometry.motion.rt_body_frame`.
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a library of its own
 under ``build/torch_kernels/`` at first use, and is bound with ctypes.  The
@@ -130,12 +132,16 @@ _SIGNATURES = {
     },
     "get_rt": {
         "grt_smem_bytes": (_LL, [_I, _I, _I]),
+        "grt_pair_smem_bytes": (_LL, [_I]),
+        "grt_tile_bytes": (_LL, [_I, _I]),
         "grt_block_threads": (_I, [_I, _I, _I, _I]),
+        "grt_block_smem": (_LL, [_I, _I, _I, _I]),
         # shifts, heights, dts, ulx, ulx_scalar, cam, dist, c2b, rate, hyp,
         # gumbel, g_si, g_sp, b, p, q, patch, iters, thr_pts, thr2, ok, rot,
-        # tran, n_inl, n_inl64, ang_diff, rejected, best, inl, h, stream
+        # tran, n_inl, n_inl64, ang_diff, rejected, detilt, summary, best,
+        # inl, h, stream
         "grt_get_rt": (_I, [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I,
-                            _I, _I, _F, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P]),
+                            _I, _I, _F, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P]),
     },
 }
 
@@ -1046,39 +1052,101 @@ phase_correlate_fused.LAUNCHES = 0
 # kernel G: getRT, window shifts to twist                                      #
 # --------------------------------------------------------------------------- #
 
-#: threads a block of kernel G at most (``grt::kMaxThreads``, its latency
-#: shape), and its throughput shape for more pairs than SMs: threads a block
-#: and blocks an SM (``GRT_WIDE_THREADS``, ``GRT_WIDE_BLOCKS``)
+#: kernel G's block layout (a block a pair): threads a block at most
+#: (``grt::kMaxThreads``, up to one pair an SM); beyond, the warps a pair
+#: that fill ``grt::kFillWarps`` warps an SM; where that is one, the warp
+#: layout: pairs a block and blocks an SM (``GRT_PAIRS``,
+#: ``GRT_PAIR_BLOCKS``).  These mirrors of ``csrc/get_rt.cu``'s launch
+#: shape are for the tests and the tuning script; a launch asks the library.
 GRT_MAX_THREADS = 256
-GRT_WIDE_SHAPE = (64, 8)
+GRT_FILL_WARPS = 16
+GRT_PAIR_SHAPE = (8, 4)
 
 
 def grt_smem_bytes(p: int, threads: int, batched: bool) -> int:
-    """Kernel G's dynamic shared memory for a block of ``threads`` at ``p``
-    windows (``grt::smem_bytes`` in ``csrc/get_rt.cu``): the refit's
-    system ``[2P, 9]`` and Householder vector ``[2P]``, on the batched path
-    each thread's row of draws ``[P + 1]``, the four point components (all
-    float32) and the valid and inlier flags (18,976 B batched at P = 16,
-    256 threads)."""
-    return 4 * 20 * p + (4 * threads * (p + 1) if batched else 0) + 4 * 4 * p + (2 * p + 7) // 8 * 8
+    """Kernel G's dynamic shared memory for a block-layout block of
+    ``threads`` at ``p`` windows (``grt::smem_bytes`` in
+    ``csrc/get_rt.cu``): the refit's system ``[2P, 9]`` and Householder
+    vector ``[2P]``, on the batched path two rows of draws ``[P + 1]`` a
+    thread (the one scored, the next in flight), the four point components
+    (all float32) and the valid and inlier flags (36,384 B batched at P =
+    16, 256 threads)."""
+    return 4 * 20 * p + (4 * 2 * threads * (p + 1) if batched else 0) + 4 * 4 * p + (2 * p + 7) // 8 * 8
+
+
+def grt_pair_smem_bytes(p: int) -> int:
+    """Kernel G's shared memory a pair of a warp-layout block (``grt::
+    pair_smem_bytes``): a block's without draws, and the winner's
+    homography and the refit's ``v^T A``, 9 floats each (1,640 B at P =
+    16)."""
+    return grt_smem_bytes(p, 0, False) + 4 * 18
+
+
+def grt_tile_bytes(p: int, pairs: int) -> int:
+    """A warp-layout block's two tiles of the draws of 32 hypotheses for its
+    ``pairs`` pairs, a hypothesis's row padded by one float (``grt::
+    tile_bytes``; 33,024 B at P = 16, 8 pairs)."""
+    return 4 * 2 * 32 * (p * pairs + 1)
 
 
 def grt_block_threads(p: int, iters: int, batched: bool, smem_limit: int,
                       most: int = GRT_MAX_THREADS) -> int:
-    """Kernel G's threads a block (``grt::block_threads``): one a hypothesis
-    up to ``most`` in whole warps, fewer where the staged draws pass
-    ``smem_limit``; 0 where not even one warp fits."""
+    """Kernel G's threads a block-layout block (``grt::block_threads``): one
+    a hypothesis up to ``most`` in whole warps, fewer where the staged
+    draws pass ``smem_limit``; 0 where not even one warp fits."""
     t = -(-min(iters, most) // 32) * 32
     while t > 0 and grt_smem_bytes(p, t, batched) > smem_limit:
         t -= 32
     return t
 
 
+def grt_pair_warps(b: int, sms: int, fill: int = GRT_FILL_WARPS) -> int:
+    """Kernel G's warps a pair beyond one pair an SM (``grt::pair_warps``):
+    the power of two, 1 to 8, nearest below ``fill`` warps an SM."""
+    w = 8
+    while w > 1 and w * b > fill * sms:
+        w //= 2
+    return w
+
+
+def grt_block_pairs(b: int, sms: int, p: int, smem_limit: int, most: int = GRT_PAIR_SHAPE[0]) -> int:
+    """Kernel G's pairs a warp-layout block of a call over ``b`` pairs on
+    ``sms`` SMs (``grt::block_pairs``): ``most``, halved while that leaves
+    fewer blocks than SMs, fewer where the block's shared memory passes
+    ``smem_limit``; 0 where not even one fits."""
+    n = most
+    while n > 1 and n * sms > b:
+        n //= 2
+    while n > 0 and n * grt_pair_smem_bytes(p) + grt_tile_bytes(p, n) > smem_limit:
+        n -= 1
+    return n
+
+
+def grt_launch(b: int, p: int, iters: int, batched: bool, sms: int, smem_limit: int, *,
+               pairs: int = GRT_PAIR_SHAPE[0], fill: int = GRT_FILL_WARPS,
+               warp_layout: bool = False) -> Tuple[int, int, bool]:
+    """Kernel G's launch of a call over ``b`` pairs (``launch_shape`` in
+    ``csrc/get_rt.cu``; ``pairs``, ``fill`` and ``warp_layout`` its
+    ``GRT_PAIRS``, ``kFillWarps`` and ``GRT_WARP_LAYOUT``): threads a block
+    (0 where it does not fit), its dynamic shared memory, and whether it is
+    the warp layout."""
+    if warp_layout and batched:
+        warps = 1
+    else:
+        warps = grt_pair_warps(b, sms, fill) if b > sms else GRT_MAX_THREADS // 32
+    if batched and warps == 1:
+        n = grt_block_pairs(b, sms, p, smem_limit, pairs)
+        return 32 * n, n * grt_pair_smem_bytes(p) + grt_tile_bytes(p, n), True
+    t = grt_block_threads(p, iters, batched, smem_limit, 32 * warps)
+    return t, grt_smem_bytes(p, t, batched), False
+
+
 class GetRTOutputs(NamedTuple):
     """Kernel G's outputs, batch first: the fields of
-    :class:`~mrs_optic_flow_tpu_torch.geometry.motion.GetRTResult`, and with
+    :class:`~mrs_optic_flow_tpu_torch.geometry.motion.GetRTResult`, with
     ``debug`` the best hypothesis ``[B]`` int32, its inlier set ``[B, P]``
-    bool and the refit homography ``[B, 3, 3]`` (None without)."""
+    bool and the refit homography ``[B, 3, 3]`` (None without), and with
+    ``detilt`` the summary head."""
 
     ok: torch.Tensor
     rot: torch.Tensor
@@ -1089,6 +1157,9 @@ class GetRTOutputs(NamedTuple):
     best: Optional[torch.Tensor] = None
     inliers: Optional[torch.Tensor] = None
     h: Optional[torch.Tensor] = None
+    #: with ``detilt``: the node's body-frame summary head ``[B, 9]``
+    #: (:func:`~mrs_optic_flow_tpu_torch.geometry.motion.rt_body_frame`)
+    summary: Optional[torch.Tensor] = None
 
 
 def _f32(what: str, x: torch.Tensor, shape: tuple) -> None:
@@ -1112,6 +1183,7 @@ def get_rt(
     ransac_threshold: float = 0.01,
     hyp_idx: Optional[torch.Tensor] = None,
     gumbel: Optional[torch.Tensor] = None,
+    detilt: Optional[torch.Tensor] = None,
 ):
     """Kernel G: getRT of ``[B, P, 2]`` window shifts -> the fields of
     :class:`~mrs_optic_flow_tpu_torch.geometry.motion.GetRTResult`, batch
@@ -1119,12 +1191,13 @@ def get_rt(
     ``hyp_idx`` ``[I, 4]`` point indices (per pair: ``B = 1``, normalized by
     h22, ``n_inliers`` int64) or the top 4 of each column of ``gumbel``
     ``[I, P, B]`` (batched: normalized by the largest entry, ``n_inliers``
-    int32), exactly one of the two.
+    int32), exactly one of the two.  With ``detilt`` (float32 ``[4]``) also
+    the node's body-frame summary head ``[B, 9]`` (``summary``).
 
     CPU tensors run the plain version (``geometry.motion.get_rt_ref`` or
-    ``geometry.batched.get_rt_batch_ref``).  CUDA tensors launch
-    ``csrc/get_rt.cu`` on the current stream, one block a pair; each launch
-    adds one to ``get_rt.LAUNCHES``.
+    ``geometry.batched.get_rt_batch_ref``, then ``geometry.motion.
+    rt_body_frame``).  CUDA tensors launch ``csrc/get_rt.cu`` on the current
+    stream; each launch adds one to ``get_rt.LAUNCHES``.
     """
     kw = dict(frame_size=frame_size, patch=patch, shifted_pts_thr=shifted_pts_thr,
               ransac_threshold=ransac_threshold)
@@ -1136,13 +1209,15 @@ def get_rt(
         if hyp_idx is not None:
             res = motion.get_rt_ref(shifts[0], heights[0], dts[0], ul_corner_x, camera_matrix,
                                     dist_coeffs, c2b_quat, ang_rate_quats[0], hyp_idx=hyp_idx, **kw)
-            return GetRTOutputs(*(x[None] for x in res))
-        res = batched.get_rt_batch_ref(shifts, heights, dts, ul_corner_x, camera_matrix, dist_coeffs,
-                                       c2b_quat, ang_rate_quats, gumbel=gumbel,
-                                       ransac_iterations=gumbel.shape[0], **kw)
-        return GetRTOutputs(*res)
+            res = motion.GetRTResult(*(x[None] for x in res))
+        else:
+            res = batched.get_rt_batch_ref(shifts, heights, dts, ul_corner_x, camera_matrix, dist_coeffs,
+                                           c2b_quat, ang_rate_quats, gumbel=gumbel,
+                                           ransac_iterations=gumbel.shape[0], **kw)
+        summary = None if detilt is None else motion.rt_body_frame(res, c2b_quat, detilt)
+        return GetRTOutputs(*res, summary=summary)
     out = launch_get_rt(shifts, heights, dts, ul_corner_x, camera_matrix, dist_coeffs, c2b_quat,
-                        ang_rate_quats, hyp_idx=hyp_idx, gumbel=gumbel, **kw)
+                        ang_rate_quats, hyp_idx=hyp_idx, gumbel=gumbel, detilt=detilt, **kw)
     get_rt.LAUNCHES += 1
     return out
 
@@ -1163,6 +1238,7 @@ def launch_get_rt(
     ransac_threshold: float = 0.01,
     hyp_idx: Optional[torch.Tensor] = None,
     gumbel: Optional[torch.Tensor] = None,
+    detilt: Optional[torch.Tensor] = None,
     debug: bool = False,
     lib: Optional[ctypes.CDLL] = None,
 ) -> GetRTOutputs:
@@ -1190,6 +1266,8 @@ def launch_get_rt(
         _f32("dist_coeffs", dist_coeffs, (5,))
     if torch.is_tensor(ul_corner_x) and ul_corner_x.ndim:
         _f32("ul_corner_x", ul_corner_x, (b,))
+    if detilt is not None:
+        _f32("detilt", detilt, (4,))
     if (hyp_idx is None) == (gumbel is None):
         raise ValueError("get_rt: give exactly one of hyp_idx and gumbel")
     if hyp_idx is not None:
@@ -1209,7 +1287,7 @@ def launch_get_rt(
         raise ValueError("get_rt: no hypotheses")
     # then the device: every tensor on the shifts' CUDA device, contiguous
     # but the draws (a shard's slice of the batch's draws is a view)
-    extra = [t for t in (dist_coeffs, hyp_idx) if t is not None]
+    extra = [t for t in (dist_coeffs, hyp_idx, detilt) if t is not None]
     _check_cuda("get_rt", shifts, heights, dts, camera_matrix, c2b_quat, ang_rate_quats, *extra)
     dev = shifts.device
     if gumbel is not None and gumbel.device != dev:
@@ -1225,15 +1303,18 @@ def launch_get_rt(
         g_si = g_sp = 0
     else:
         g_si, g_sp = gumbel.stride(0), gumbel.stride(1)
-    if not grt_block_threads(p, iters, gumbel is not None, _smem_limit(dev) - STATIC_SMEM_BYTES):
-        raise ValueError(f"get_rt: {p} windows do not fit kernel G's shared memory on {dev}")
     lib = lib or load_library("get_rt")
+    with torch.cuda.device(dev):
+        fits = lib.grt_block_threads(b, p, iters, int(gumbel is not None))
+    if not fits:
+        raise ValueError(f"get_rt: {p} windows do not fit kernel G's shared memory on {dev}")
     ok = torch.empty((b,), dtype=torch.bool, device=dev)
     rot = torch.empty((b, 4), dtype=torch.float32, device=dev)
     tran = torch.empty((b, 3), dtype=torch.float32, device=dev)
     n_inl = torch.empty((b,), dtype=torch.int64 if hyp_idx is not None else torch.int32, device=dev)
     ang_diff = torch.empty((b,), dtype=torch.float32, device=dev)
     rejected = torch.empty((b,), dtype=torch.bool, device=dev)
+    summary = None if detilt is None else torch.empty((b, 9), dtype=torch.float32, device=dev)
     best = inl = h = None
     if debug:
         best = torch.empty((b,), dtype=torch.int32, device=dev)
@@ -1250,11 +1331,11 @@ def launch_get_rt(
             ang_rate_quats.data_ptr(), ptr(hyp_idx), ptr(gumbel), g_si, g_sp, b, p, q, patch,
             iters, shifted_pts_thr, ransac_threshold * ransac_threshold, ok.data_ptr(),
             rot.data_ptr(), tran.data_ptr(), n_inl.data_ptr(), int(hyp_idx is not None),
-            ang_diff.data_ptr(), rejected.data_ptr(), ptr(best), ptr(inl), ptr(h),
-            torch.cuda.current_stream(dev).cuda_stream,
+            ang_diff.data_ptr(), rejected.data_ptr(), ptr(detilt), ptr(summary), ptr(best), ptr(inl),
+            ptr(h), torch.cuda.current_stream(dev).cuda_stream,
         )
     _check_launch(err, "get_rt")
-    return GetRTOutputs(ok, rot, tran, n_inl, ang_diff, rejected, best, inl, h)
+    return GetRTOutputs(ok, rot, tran, n_inl, ang_diff, rejected, best, inl, h, summary)
 
 
 get_rt.LAUNCHES = 0

@@ -10,7 +10,8 @@ warm-up, checkpoints and health.  Published messages go through a pluggable
 Each frame runs one eager function on the node's device.  With method 4
 (:meth:`_frame_step`): preprocess -> ``FftMethod.step`` (kernel A on a CUDA
 device, or kernel D for a patch kernel A does not take) -> ``get_rt`` ->
-detilt and body rotation; in long-range mode (:meth:`_frame_step_lr`, chosen
+detilt and body rotation (on a CUDA device kernel G, the body frame its
+epilogue); in long-range mode (:meth:`_frame_step_lr`, chosen
 per frame by ``long_range_mode``): preprocess -> ``FftMethod.step_long_range``
 on the downsampled frames -> ``get_2dt`` -> body rotation.  With the
 block-matching methods 3 and 5 (:meth:`_frame_step_simple`): preprocess ->
@@ -47,14 +48,8 @@ from mrs_optic_flow_tpu_torch.config import NodeConfig
 from mrs_optic_flow_tpu_torch.convert import node_state_from_numpy
 from mrs_optic_flow_tpu_torch.filters.allsac import allsac_mean, point_mean, ransac_mean
 from mrs_optic_flow_tpu_torch.filters.stats import SpeedBox, analyze_speeds
-from mrs_optic_flow_tpu_torch.geometry.motion import get_2dt, get_rt
-from mrs_optic_flow_tpu_torch.geometry.rotations import (
-    matrix_from_quat,
-    quat_axis_angle,
-    quat_from_axis_angle,
-    quat_rotate,
-    rpy_from_matrix,
-)
+from mrs_optic_flow_tpu_torch.geometry.motion import get_2dt, get_rt_body_frame
+from mrs_optic_flow_tpu_torch.geometry.rotations import quat_rotate
 from mrs_optic_flow_tpu_torch.models import (
     FftMethod,
     ScaleRotationConfig,
@@ -87,7 +82,7 @@ from mrs_optic_flow_tpu_torch.utils.quat_np import (
 #: the ``torch.profiler`` ranges around the stages of a frame's chain
 #: (``scripts/profile_torch_node.py --split``); a range shows only in a
 #: trace of the eager chain, not inside a graph replay
-STAGES = ("node.gray", "node.engine", "node.get_rt", "node.get_2dt", "node.consensus",
+STAGES = ("node.gray", "node.engine", "node.get_rt+body_frame", "node.get_2dt", "node.consensus",
           "node.body_frame", "node.scale_rotation")
 stage = torch.profiler.record_function
 
@@ -550,7 +545,8 @@ class OpticFlowNode:
 
     def _frame_step(self, gray: torch.Tensor, params: torch.Tensor, cx_eff: int):
         """The method-4 device chain on the gray window: engine step ->
-        getRT -> detilt and body-frame rotation.  ``params`` is
+        getRT -> detilt and body-frame rotation (``get_rt_body_frame``: one
+        launch of kernel G on the card).  ``params`` is
         :func:`pack_params`'s vector.
         Returns the new flow and scale/rotation states, the ``summary``
         vector ``[ok, tran_b (3), ang (3), n_inliers, ang_diff_rejected]``,
@@ -564,28 +560,18 @@ class OpticFlowNode:
 
         with stage("node.engine"):
             flow_state, flow = self.engine.step(self.flow_state, gray)
-        with stage("node.get_rt"):
-            res = get_rt(
+        with stage("node.get_rt+body_frame"):
+            # getRT, then detilt * (C2B * tran) (src/optic_flow.cpp:1694)
+            # and the rotation axis into the body frame, rotation only
+            # (:1747): on the card one launch of kernel G, the body frame its
+            # epilogue
+            head = get_rt_body_frame(
                 flow.shifts, height, dt, float(cx_eff - c.frame_size // 2), cam, dist, c2b,
-                rate_quat, frame_size=c.frame_size, patch=c.sample_point_size, generator=self._gen,
-                shifted_pts_thr=c.shifted_pts_thr,
+                rate_quat, detilt, frame_size=c.frame_size, patch=c.sample_point_size,
+                generator=self._gen, shifted_pts_thr=c.shifted_pts_thr,
             )
-        with stage("node.body_frame"):
-            # detilt * (C2B * tran) (src/optic_flow.cpp:1694); the rotation
-            # axis into the body frame, rotation only (:1747)
-            tran_b = quat_rotate(detilt, quat_rotate(c2b, res.tran))
-            axis, angle = quat_axis_angle(res.rot)
-            rot_b = quat_from_axis_angle(quat_rotate(c2b, axis), angle)
-            ang = torch.stack(rpy_from_matrix(matrix_from_quat(rot_b)))
         sr_state, sr_parts = self._sr_step(gray)
-        parts = [
-            res.ok.to(torch.float32)[None],
-            tran_b,
-            ang,
-            res.n_inliers.to(torch.float32)[None],
-            res.ang_diff_rejected.to(torch.float32)[None],
-            *sr_parts,
-        ]
+        parts = [head, *sr_parts]
         if c.raw_output:
             parts.append(flow.shifts_raw.reshape(-1))
         return flow_state, sr_state, torch.cat(parts), flow

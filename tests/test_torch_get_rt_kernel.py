@@ -17,9 +17,11 @@ wrappers run the plain version, the torch geometry.  These tests hold:
     ``get_rt`` / ``get_rt_batch`` (float32: ``tran`` 1e-3 m/s, ``rot``
     ``torch_parity.rot_tol``; float64: 1e-9);
 (d) ``SOURCES`` names ``get_rt.cu``, built with ``-fmad=false``; the source's
-    constants and shared-memory formula are the wrapper's; the wrapper's
-    checks raise on a wrong dtype, shape, window count or draws, and on CPU
-    tensors (no fallback).
+    constants, shared-memory formulas and both layouts' block shapes are the
+    wrapper's; the wrapper's checks raise on a wrong dtype, shape, window
+    count, draws or epilogue input (``detilt``) before
+    they look at the device, and on CPU tensors (no fallback).  The
+    epilogue's plain version is held in ``tests/test_torch_body_frame.py``.
 """
 
 import json
@@ -395,12 +397,18 @@ def test_source_is_listed_and_built_without_contraction():
     assert ck.SOURCES["get_rt"] == "get_rt.cu" and SOURCE.exists()
     assert "-fmad=false" in ck.SOURCE_FLAGS["get_rt"]
     text = SOURCE.read_text()
-    assert re.search(r"constexpr int kMaxThreads = (\d+);", text).group(1) == str(ck.GRT_MAX_THREADS)
-    wide = tuple(int(re.search(rf"#define {m} (\d+)", text).group(1))
-                 for m in ("GRT_WIDE_THREADS", "GRT_WIDE_BLOCKS"))
-    assert wide == ck.GRT_WIDE_SHAPE
-    assert "4LL * 20 * p + (batched ? 4LL * threads * (p + 1) : 0) + 4LL * 4 * p +" in text
+    assert re.search(r"constexpr int kMaxThreads = (\d+),", text).group(1) == str(ck.GRT_MAX_THREADS)
+    pairs = tuple(int(re.search(rf"#define {m} (\d+)", text).group(1)) for m in ("GRT_PAIRS", "GRT_PAIR_BLOCKS"))
+    assert pairs == ck.GRT_PAIR_SHAPE
+    assert int(re.search(r"constexpr int kMaxThreads = \d+, kFillWarps = (\d+);", text).group(1)) == \
+        ck.GRT_FILL_WARPS
+    assert "#define GRT_WARP_LAYOUT 0" in text  # the shipped build: the warp layout beyond 2,112 pairs
+    assert "4LL * 20 * p + (batched ? 4LL * 2 * threads * (p + 1) : 0) + 4LL * 4 * p +" in text
     assert "((2LL * p + 7) / 8) * 8" in text
+    assert "return smem_bytes(p, 0, false) + 4LL * 18;" in text
+    assert "return 4LL * 2 * 32 * (p * pairs + 1);" in text
+    assert "while (n > 1 && static_cast<long long>(n) * sms > b) n /= 2;" in text
+    assert "while (w > 1 && static_cast<long long>(w) * b > static_cast<long long>(fill) * sms) w /= 2;" in text
     assert "Replaces no TPU kernel" in text
 
 
@@ -423,14 +431,41 @@ def test_build_passes_the_source_flags(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("p,threads,batched", [(16, 256, True), (64, 256, True), (16, 256, False), (9, 32, True)])
 def test_shared_memory_and_threads(p, threads, batched):
+    """Both layouts' shared memory and launch shapes on an H100's 132 SMs:
+    a block of 256 threads a pair up to 132 pairs, then the warps a pair
+    that fill 16 warps an SM, one warp the warp layout (pairs a block
+    halved while the blocks would leave an SM idle)."""
     limit = ck.H100_SMEM_OPTIN_BYTES - ck.STATIC_SMEM_BYTES
     smem = ck.grt_smem_bytes(p, threads, batched)
-    assert smem == 80 * p + (4 * threads * (p + 1) if batched else 0) + 16 * p + (2 * p + 7) // 8 * 8
+    # two rows of draws a thread: the one scored and the next in flight
+    assert smem == 80 * p + (8 * threads * (p + 1) if batched else 0) + 16 * p + (2 * p + 7) // 8 * 8
     t = ck.grt_block_threads(p, 512, batched, limit)
     assert t == ck.GRT_MAX_THREADS and ck.grt_smem_bytes(p, t, batched) <= limit
     assert ck.grt_block_threads(p, 40, batched, limit) == 64  # whole warps
-    assert ck.grt_block_threads(256, 256, True, limit) == 192  # the staged draws cap the block
+    assert ck.grt_block_threads(256, 256, True, limit) == 96  # the staged draws cap the block
     assert ck.grt_block_threads(2000, 256, True, limit) == 0
+    # the warp layout: a pair's region is a block's without draws and the
+    # winner's homography and v^T A; the block's two tiles of 32
+    # hypotheses' draws; 8 pairs a block at the bench batch
+    pair = ck.grt_pair_smem_bytes(p)
+    assert pair == ck.grt_smem_bytes(p, 0, False) + 72 and pair % 8 == 0
+    assert ck.grt_tile_bytes(p, 8) == 2 * 32 * (8 * p + 1) * 4
+    assert ck.GRT_PAIR_SHAPE == (8, 4) and ck.GRT_FILL_WARPS == 16
+    assert ck.grt_block_pairs(4096, 132, p, limit) == 8
+    assert ck.grt_block_pairs(1024, 132, p, limit) == 4
+    assert ck.grt_block_pairs(512, 132, p, limit) == 2  # 256 blocks, none of 132 SMs idle
+    assert ck.grt_block_pairs(133, 132, p, limit) == 1
+    assert ck.grt_block_pairs(4096, 132, 256, limit) == 2  # shared memory caps the block
+    assert ck.grt_block_pairs(4096, 132, 2000, limit) == 0
+    # warps a pair: 8 up to one pair an SM, then as many as fill 16 an SM
+    assert [ck.grt_pair_warps(b, 132) for b in (133, 264, 265, 512, 1056, 1057, 2112, 2113, 4096)] == \
+        [8, 8, 4, 4, 2, 1, 1, 1, 1]
+    launches = {b: ck.grt_launch(b, p, 256, batched, 132, limit) for b in (1, 128, 512, 1024, 4096)}
+    assert [launches[b][:2] for b in (1, 128, 512, 1024)] == [(t, ck.grt_smem_bytes(p, t, batched))
+                                                             for t in (256, 256, 128, 64)]
+    assert launches[4096][2] == batched  # the warp layout takes the batched path only
+    if batched:
+        assert launches[4096][:2] == (256, 8 * pair + ck.grt_tile_bytes(p, 8))
 
 
 def _good(b=1, p=16, hyp=True):
@@ -447,9 +482,11 @@ def _good(b=1, p=16, hyp=True):
 @pytest.mark.parametrize("bad", ["float64 shifts", "shifts shape", "heights shape", "camera", "dist",
                                  "ul per sample", "both draws", "no draws", "hyp with two pairs",
                                  "hyp shape", "gumbel shape", "gumbel dtype", "gumbel stride", "windows",
-                                 "too few windows", "no hypotheses"])
+                                 "too few windows", "no hypotheses", "c2b shape", "c2b dtype", "detilt shape",
+                                 "detilt dtype"])
 def test_wrapper_checks_raise(bad):
-    """Each argument the kernel does not take raises before any launch."""
+    """Each argument the kernel does not take raises before any launch, and
+    before the device is looked at."""
     args, kw = _good(hyp=bad not in ("gumbel shape", "gumbel dtype", "gumbel stride"))
     if bad == "float64 shifts":
         args[0] = args[0].double()
@@ -483,17 +520,29 @@ def test_wrapper_checks_raise(bad):
         args, kw = _good(p=4)
     elif bad == "no hypotheses":
         kw["hyp_idx"] = torch.zeros((0, 4), dtype=torch.int64)
-    with pytest.raises(ValueError):
+    elif bad == "c2b shape":
+        args[6] = args[6][:3]
+    elif bad == "c2b dtype":
+        args[6] = args[6].double()
+    elif bad == "detilt shape":
+        kw["detilt"] = torch.zeros(3)
+    elif bad == "detilt dtype":
+        kw["detilt"] = torch.zeros(4, dtype=torch.float64)
+    with pytest.raises(ValueError) as err:
         ck.launch_get_rt(*args, **kw)
+    assert "CUDA" not in str(err.value)
 
 
 def test_wrapper_refuses_cpu_tensors():
     """Well-formed CPU tensors do not reach a plain version through the
-    launcher: it raises, naming the device."""
+    launcher: it raises, naming the device; so does a well-formed epilogue
+    input."""
     for hyp in (True, False):
         args, kw = _good(b=1 if hyp else 2, hyp=hyp)
         with pytest.raises(ValueError, match="CUDA"):
             ck.launch_get_rt(*args, **kw)
+        with pytest.raises(ValueError, match="CUDA"):
+            ck.launch_get_rt(*args, detilt=torch.zeros(4), **kw)
 
 
 def test_sources_hold_every_kernel():
@@ -506,20 +555,55 @@ def test_sources_hold_every_kernel():
 
 
 def test_tune_script_on_the_cpu(capsys):
-    """``scripts/tune_get_rt_kernel_torch.py`` on the CPU: one line a shape,
-    the shipped one marked, each case's threads and shared memory from the
-    mirror (the throughput shape beyond 132 pairs), nothing built."""
+    """``scripts/tune_get_rt_kernel_torch.py`` on the CPU: one line a build
+    (each ``PAIRSxBLOCKS`` of the warp layout, then each fill, then each
+    rewrite), each case's launch from the mirror (the warp shapes' every
+    batched case in the warp layout, its pairs halved at 512; a rewrite
+    the shipped launch), nothing built; every rewrite's texts are in the
+    source once."""
     from scripts import tune_get_rt_kernel_torch as tg
 
-    assert tg.main(["--shapes", "64x8,256x1", "--cases", "4096x256x16,1x512x16", "--device", "cpu"]) == 0
+    assert tg.main(["--shapes", "8x2,4x4", "--fills", "8", "--rewrites", ",".join(tg.REWRITES),
+                    "--cases", "4096x256x16,512x256x16,1x512x16", "--device", "cpu"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [r["shape"] for r in rows] == [[64, 8], [256, 1]]
-    assert rows[0]["shipped"] and not rows[1]["shipped"] and not rows[0]["built"]
-    assert rows[0]["cases"]["4096x256x16"] == {"threads": 64, "smem": ck.grt_smem_bytes(16, 64, True)}
-    assert rows[1]["cases"]["4096x256x16"]["threads"] == 256
-    assert rows[0]["cases"]["1x512x16"] == {"threads": 256, "smem": ck.grt_smem_bytes(16, 256, False)}
-    # --draws rewrites the batched path's one read of the draws
-    assert SOURCE.read_text().count(tg.DRAW_READ) == 1
+    assert [r["build"] for r in rows] == [tg.defines((8, 2)), tg.defines((4, 4)), {"fill": 8}] + \
+        [{"rewrite": n} for n in tg.REWRITES]
+    assert tg.defines((8, 2)) == {"GRT_PAIRS": 8, "GRT_PAIR_BLOCKS": 2, "GRT_WARP_LAYOUT": 1}
+    assert not any(r["built"] for r in rows)
+    pair, tile = ck.grt_pair_smem_bytes(16), ck.grt_tile_bytes
+    assert rows[0]["cases"]["4096x256x16"] == {"threads": 256, "smem": 8 * pair + tile(16, 8), "warp_layout": True}
+    assert rows[0]["cases"]["512x256x16"] == {"threads": 64, "smem": 2 * pair + tile(16, 2), "warp_layout": True}
+    assert rows[1]["cases"]["4096x256x16"]["threads"] == 128
+    assert rows[0]["cases"]["1x512x16"] == {"threads": 256, "smem": ck.grt_smem_bytes(16, 256, False),
+                                            "warp_layout": False}
+    assert rows[2]["cases"]["512x256x16"] == {"threads": 64, "smem": ck.grt_smem_bytes(16, 64, True),
+                                              "warp_layout": False}
+    assert all(r["cases"] == rows[-1]["cases"] for r in rows[3:])
+    assert rows[-1]["cases"]["512x256x16"]["threads"] == 128
+    src = SOURCE.read_text()
+    for build in [("fill", 8)] + [("rewrite", n) for n in tg.REWRITES]:
+        assert tg.rewritten(src, build) != src
+    with pytest.raises(ValueError, match="once"):
+        tg.rewritten(src.replace(tg.FILL, ""), ("fill", 8))
+    with pytest.raises(SystemExit):
+        tg.main(["--rewrites", "nonesuch", "--device", "cpu"])
+
+
+def test_span_probe_finds_its_anchors():
+    """``scripts/probe_get_rt_spans_torch.py``'s anchors are the source's
+    ``GRT_SPAN(k)`` marks, empty in the shipped build: phases 0-3 in both
+    layouts' kernels, 4-10 in the shared refit; the probe's copy defines
+    them before the unchanged source and raises where one is missing."""
+    from scripts import probe_get_rt_spans_torch as ps
+
+    src = SOURCE.read_text()
+    assert "#ifndef GRT_SPAN\n#define GRT_SPAN(k)\n#endif" in src
+    counts = [src.count(f"GRT_SPAN({k});") for k in range(len(ps.PHASES) + 1)]
+    assert counts == [2, 2, 2, 2] + [1] * (len(ps.PHASES) - 3)
+    out = ps.instrumented(src)
+    assert out.startswith(ps.SPAN) and src in out and "clock64()" in ps.SPAN
+    with pytest.raises(ValueError, match="GRT_SPAN"):
+        ps.instrumented(src.replace("GRT_SPAN(5);", ""))
 
 
 def test_order_probe_on_the_cpu(capsys):

@@ -52,6 +52,7 @@ PORT_MODULES = [
 #: the port's measurement and tuning scripts, which run on the card
 PORT_SCRIPTS = [
     "accuracy_report_torch",
+    "probe_get_rt_spans_torch",
     "probe_torch_orders_torch",
     "profile_geometry_torch",
     "profile_staging_torch",
